@@ -20,7 +20,20 @@ Phases:
      warm fit;
   6. launch counts: the Newton kernel ran at least once per bucket per Newton
      iteration, the score kernel once per fit, and no plain version saw a
-     CUDA tensor during the kernel-path fits.
+     CUDA tensor during the kernel-path fits;
+  7. the flash-attention, masked-logits and Gram kernels against their plain
+     versions on the card: ragged shapes (s, n, p, d that divide no tile),
+     every head grouping and window kind, both dtypes of the attention
+     kernel, and the shapes of the serving path and of kernels_bench; kernel,
+     plain and library times with CUDA events; conditional_logits_op and
+     gram_op driven once through the kernels;
+  8. Llama-3.2-3B at full width and depth (weights drawn on the card from a
+     seeded generator): generate with b = 4, a 2048-token prompt and 32 new
+     tokens, then a sliding-window request (window 4096, b = 1, an
+     8192-token prompt, 16 new tokens); prefill then teacher-forced decode
+     against the full forward, the window cache's length, greedy
+     determinism, 28 flash-attention launches per prefill, and the device's
+     busy share of one profiled prefill.
 
 Samples are drawn here, seeded, by a chromatic Gibbs sweep written with
 neighbour lists in torch on the card; true parameters come from a seeded
@@ -45,10 +58,21 @@ GATE_ELEM = 1e-5      # eta, r: short sums over a node's neighbours
 #: kernel fit against plain fit, on theta
 GATE_THETA = 1e-4
 
+#: flash attention: float32 sums in another order, and (bf16) the kernel's
+#: p rounded to bf16 for the p v product, held against the plain version
+#: run in float32 on the same bf16 inputs
+GATE_SWA = {"float32": 1e-5, "bfloat16": 1e-2}
+#: Llama prefill + teacher-forced decode against one full forward, bf16:
+#: the decode path rounds its scores to bf16 before the softmax (as the
+#: reference does) where the kernel keeps them in float32, and 28 layers of
+#: bf16 activations compound it; normwise over the compared logits
+GATE_SERVE = 1e-1
+
 #: data-sheet rates by the name nvidia-smi reports (bytes/s, FP32 FLOP/s
-#: outside the tensor cores)
-CARD_RATES = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-              ("H100", 3.35e12, 67e12))
+#: outside the tensor cores, dense BF16 tensor-core FLOP/s)
+CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
+              ("H100 NVL", 3.9e12, 60e12, 835e12),
+              ("H100", 3.35e12, 67e12, 989e12))
 
 PAPER_COMBINERS = ("uniform", "diagonal", "optimal", "max")
 FIELD_COMBINERS = ("diagonal", "max")
@@ -64,9 +88,10 @@ def abs_err(a, b) -> float:
 
 
 def card_rates(name: str):
-    for key, bw, flops in CARD_RATES:
+    """(bytes/s, FP32 FLOP/s, BF16 FLOP/s) of the card."""
+    for key, *rates in CARD_RATES:
         if key in name:
-            return bw, flops
+            return rates
     return CARD_RATES[-1][1:]
 
 
@@ -150,30 +175,39 @@ def gibbs_sample(torch, graph, family: str, theta, n: int, sweeps: int,
     return X[:, :p].contiguous()
 
 
-def field_profile(torch, sess, X):
-    """The device's busy share of one warm fit and its top device kernels,
-    under torch.profiler."""
+def device_profile(torch, label: str, fn):
+    """The device's busy share of one call of ``fn`` and its top device
+    kernels, under torch.profiler. Busy time is the union of the device
+    events' intervals (kernels, copies, fills); the CPU ops that launched
+    them are not counted again."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sess.fit(X)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-    events = prof.key_averages()
-    busy = sum(dev_us(e) for e in events) / 1e6
-    print(f"  profiled warm fit: wall {wall:.3f} s, device busy {busy:.3f} s "
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    busy = busy_us / 1e6
+    print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%, under the profiler)")
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        if dev_us(e) > 0:
-            print(f"    device {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
-                  f"{e.key[:90]}")
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
 
 
 # ------------------------------------------------------------------- main
@@ -226,9 +260,10 @@ def main() -> int:
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind_name = torch.cuda.get_device_name(0)
-    bw, flops = card_rates(kind_name)
+    bw, flops, bf16_flops = card_rates(kind_name)
     print(f"phase 2: {kind_name}; bound rates {bw:.3g} B/s, "
-          f"{flops:.3g} FP32 FLOP/s (data sheet)")
+          f"{flops:.3g} FP32 FLOP/s, {bf16_flops:.3g} BF16 FLOP/s "
+          f"(data sheet)")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(20120626)
@@ -362,8 +397,9 @@ def main() -> int:
     def score_cost(C, n, p, nnz):
         """Bytes and FP32 operations of the kernel's contract: the masked
         product counted by the nonzeros of A (its only needed work), the
-        full C x C Gram S = r^T F / n that the kernel writes."""
-        nbytes = 4 * (C * n * p + C * p * p + p * p + C * p + 2 * C * n * p
+        full C x C Gram S = r^T F / n that the kernel writes; Theta is
+        read only at A's nonzeros."""
+        nbytes = 4 * (C * n * p + C * nnz + p * p + C * p + 2 * C * n * p
                       + C * C * p * p)
         nflop = 2 * C * n * nnz + 2 * C * C * n * p * p
         return nbytes, nflop
@@ -560,11 +596,344 @@ def main() -> int:
         print(f"  field n=16384 {c}: MSE {float(d @ d):.4f} over "
               f"{d.size} parameters")
 
-    field_profile(torch, sess, X_field[16384:])
+    device_profile(torch, "warm fit", lambda: sess.fit(X_field[16384:]))
 
     # ---- phase 6: launch counts ------------------------------------------
     gate(all(v > 0 for v in launches.values()),
          f"phase 6: main-path launches {launches}")
+    del sess, res_cold, res_warm, res_plain
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: flash attention, masked logits, Gram ------------------
+    print("phase 7: flash-attention, masked-logits and Gram kernels against "
+          "their plain versions on the card")
+    import torch.nn.functional as Fn
+    import repro_torch.configs as TC
+    from repro_torch.kernels.cl.ops import conditional_logits_op
+    from repro_torch.kernels.gram import kernel as gmod
+    from repro_torch.kernels.gram import ops as gops
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.kernels.swa import ops as sops
+    from repro_torch.models import attention as TA
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import transformer as TT
+
+    errs.update(swa=0.0, cl_logits=0.0, gram=0.0)
+
+    def bound_at(nbytes, nflop, rate):
+        tb, tf = nbytes / bw * 1e3, nflop / rate * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    def swa_pairs(s, window):
+        """(query, key) pairs in the causal band of one head."""
+        if not window or window >= s:
+            return s * (s + 1) // 2
+        return window * (window + 1) // 2 + (s - window) * window
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check_swa(tag, q, k, v, window):
+        got = smod.swa_attention(q, k, v, window=window)
+        want = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                      window=window)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        errs["swa"] = max(errs["swa"], abs_err(got, want))
+        gate(e <= GATE_SWA[str(q.dtype).split(".")[-1]],
+             f"swa {tag} {str(q.dtype).split('.')[-1]}: rel {e:.2e}")
+        del got, want
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for s_len in (1000, 130):
+            for d in (64, 96):
+                for h, kh in ((6, 2), (4, 4), (24, 8)):
+                    for window in (0, 1, 100):
+                        q = randn((2, s_len, h, d), dtype)
+                        k, v = (randn((2, s_len, kh, d), dtype)
+                                for _ in range(2))
+                        check_swa(f"b=2 s={s_len} d={d} h/kh={h}/{kh} "
+                                  f"window={window}", q, k, v, window)
+
+    def time_swa(tag, q, k, v, window, reps):
+        b, s_len, h, d = q.shape
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if window:
+            pos = torch.arange(s_len, device=dev)
+            band = (pos[None, :] <= pos[:, None]) \
+                & (pos[None, :] > pos[:, None] - window)
+
+            def library():
+                Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=band,
+                                                enable_gqa=True)
+        else:
+            def library():
+                Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True)
+        kms, pms, lms = timer.turns(
+            lambda: smod.swa_attention_ref(q, k, v, window=window),
+            lambda: smod.swa_attention(q, k, v, window=window), library, reps)
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        nflop = 4 * d * swa_pairs(s_len, window) * b * h
+        bms, by = bound_at(nbytes, nflop, bf16_flops)
+        row = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                   bound_by=by)
+        print(f"  time swa {tag}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+              f"sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by}; "
+              f"{nflop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+        return row
+
+    llama = TC.get("llama3.2-3b")
+    hq, hkv, hd = llama.n_heads, llama.n_kv_heads, llama.hd
+    PREFILL = (4, 2048, 32)          # batch, prompt, new tokens
+    WINDOWED = (1, 8192, 16, 4096)   # batch, prompt, new tokens, window
+    for tag, b, s_len, window, reps in (
+            (f"prefill b={PREFILL[0]} s={PREFILL[1]}", PREFILL[0],
+             PREFILL[1], 0, 10),
+            (f"window b={WINDOWED[0]} s={WINDOWED[1]} w={WINDOWED[3]}",
+             WINDOWED[0], WINDOWED[1], WINDOWED[3], 5)):
+        q = randn((b, s_len, hq, hd), torch.bfloat16)
+        k, v = (randn((b, s_len, hkv, hd), torch.bfloat16) for _ in range(2))
+        check_swa(tag, q, k, v, window)
+        row = time_swa(tag, q, k, v, window, reps)
+        main_rows.setdefault("swa", row)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    def check_logits(tag, F, th, mask, bias):
+        got = kmod.cl_logits(F, th, mask, bias)
+        want = kmod.cl_logits_ref(F, th, mask, bias)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        errs["cl_logits"] = max(errs["cl_logits"], abs_err(got, want))
+        gate(e <= GATE_ELEM, f"cl_logits {tag}: rel {e:.2e}")
+
+    def time_logits(tag, F, th, mask, bias, reps):
+        C, n, p = F.shape
+        B = (th * mask[None]).contiguous()
+        b3 = bias[:, None, :]
+        kms, pms, lms = timer.turns(
+            lambda: kmod.cl_logits_ref(F, th, mask, bias),
+            lambda: kmod.cl_logits(F, th, mask, bias),
+            lambda: torch.baddbmm(b3, F, B), reps)
+        nnz = int(mask.count_nonzero())
+        # F read, eta written, A and b read, Theta read at A's nonzeros
+        bms, by = bound_at(4 * (2 * C * n * p + p * p + C * p + C * nnz),
+                           2 * C * n * nnz, flops)
+        print(f"  time cl_logits {tag}: kernel {kms:.4f} ms, plain "
+              f"{pms:.4f} ms, baddbmm {lms:.4f} ms, bound {bms:.4f} ms "
+              f"({by}; the product counted by the {nnz} nonzeros of A)",
+              flush=True)
+        return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                    bound_by=by)
+
+    def logits_inputs(C, n, p, density):
+        if C == 1:
+            F = torch.where(torch.rand((1, n, p), generator=gen, device=dev)
+                            < .5, 1.0, -1.0)
+        else:
+            x = torch.randint(0, C + 1, (n, p), generator=gen, device=dev)
+            F = torch.stack([(x == c).float() for c in range(1, C + 1)])
+        th = 0.3 * randn((C, p, p))
+        mask = (torch.rand((p, p), generator=gen, device=dev)
+                < density).float()
+        return F, th, mask, 0.1 * randn((C, p))
+
+    for C in (1, 2):
+        for p in (37, 130):
+            check_logits(f"C={C} n=1001 p={p}", *logits_inputs(C, 1001, p,
+                                                               .2))
+    bench_logits = logits_inputs(1, 4096, 256, .1)   # kernels_bench, full
+    check_logits("kernels_bench n=4096 p=256", *bench_logits)
+    time_logits("kernels_bench n=4096 p=256", *bench_logits, 20)
+    name, g, fam, _, th, X = paper[2]
+    pf = family_kernel_inputs(A.Plan(graph=g, family=fam).family_instance, g,
+                              th.to(dev, torch.float32), X)
+    check_logits(f"{name} n={X.shape[0]} p={g.p} C={pf[0].shape[0]}", *pf)
+    time_logits(f"{name} n={X.shape[0]} p={g.p} C={pf[0].shape[0]}", *pf,
+                20)
+    ff = family_kernel_inputs(A.Plan(graph=g_field).family_instance, g_field,
+                              th_field.to(dev, torch.float32), Xf)
+    check_logits(f"field_ising n=16384 p={g_field.p}", *ff)
+    main_rows["cl_logits"] = time_logits(
+        f"field_ising n=16384 p={g_field.p}", *ff, 3)
+    del ff
+
+    def check_gram(tag, S):
+        got, want = gmod.gram(S), gmod.gram_ref(S)
+        torch.cuda.synchronize()
+        e = rel_err(got, want)
+        errs["gram"] = max(errs["gram"], abs_err(got, want))
+        gate(e <= GATE_STATS, f"gram {tag}: rel {e:.2e} (long sums over "
+             f"samples)")
+
+    check_gram("n=1001 d=130", randn((1001, 130)))
+    S_bench = randn((16384, 512))                     # kernels_bench, full
+    check_gram("kernels_bench n=16384 d=512", S_bench)
+    n, d = S_bench.shape
+    G0 = torch.empty((d, d), device=dev)
+    kms, pms, lms = timer.turns(
+        lambda: gmod.gram_ref(S_bench), lambda: gmod.gram(S_bench),
+        lambda: torch.addmm(G0, S_bench.T, S_bench, beta=0.0, alpha=1.0 / n),
+        20)
+    # G is symmetric: d(d+1)/2 dot products of length n
+    bms, by = bound_at(4 * (n * d + d * d), n * d * (d + 1), flops)
+    main_rows["gram"] = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by)
+    print(f"  time gram kernels_bench n={n} d={d}: kernel {kms:.4f} ms, "
+          f"plain {pms:.4f} ms, addmm {lms:.4f} ms, bound {bms:.4f} ms "
+          f"({by})", flush=True)
+
+    # plain versions must see no CUDA tensor on the op entries and serving
+    for mod, name in ((omod, "ising_cl_logits_ref"), (kmod, "cl_logits_ref"),
+                      (gops, "gram_ref"), (gmod, "gram_ref"),
+                      (sops, "swa_attention_ref"),
+                      (smod, "swa_attention_ref"),
+                      (TA, "_plain_attention"), (TA, "_blocked_attention")):
+        setattr(mod, name, counting(getattr(mod, name)))
+
+    F, th, mask, bias = bench_logits
+    x, th, bias = F[0], th[0], bias[0]
+    kmod.cl_logits.launches = 0
+    gmod.gram.launches = 0
+    plain_cuda_calls["n"] = 0
+    eta = conditional_logits_op(x, th, mask, bias)
+    G = gops.gram_op(S_bench)
+    torch.cuda.synchronize()
+    launches["cl_logits"] = kmod.cl_logits.launches
+    launches["gram"] = gmod.gram.launches
+    gate(launches["cl_logits"] == 1 and launches["gram"] == 1
+         and plain_cuda_calls["n"] == 0 and eta.shape == x.shape
+         and G.shape == (d, d) and bool(torch.isfinite(eta).all())
+         and bool(torch.isfinite(G).all()),
+         f"op entries: conditional_logits_op launched cl_logits "
+         f"{launches['cl_logits']}, gram_op launched gram {launches['gram']},"
+         f" plain calls on CUDA tensors {plain_cuda_calls['n']}")
+    del bench_logits, S_bench, F, x, th, mask, bias, eta, G, G0
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: Llama-3.2-3B serving -----------------------------------
+    print(f"phase 8: {llama.arch_id} serving at full width and depth "
+          f"({llama.n_layers} layers, d={llama.d_model}, {hq}/{hkv} heads, "
+          f"{llama.dtype})")
+    launches["swa"] = 0
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TT.model_init(llama, mgen, device=dev)
+    torch.cuda.synchronize()
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+    n_params = sum(t.numel() for t in leaves(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    print(f"  weights: {n_params / 1e9:.3f} B parameters, "
+          f"{weight_bytes / 1e9:.3f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    b, s_len, n_new = PREFILL
+    prompt = torch.randint(0, llama.vocab_size, (b, s_len), generator=mgen,
+                           device=dev)
+    TD.generate(llama, params, prompt[:1, :64], 2)    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def serve(tag, prompt, n_new, window):
+        """generate once through the kernel path, counts set to 0 just
+        before and read just after."""
+        smod.swa_attention.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = TD.generate(llama, params, prompt, n_new,
+                          window_override=window)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl, pc = smod.swa_attention.launches, plain_cuda_calls["n"]
+        launches["swa"] += nl
+        gate(nl == llama.n_layers and pc == 0
+             and out.shape == (prompt.shape[0], n_new),
+             f"{tag}: generate {tuple(out.shape)} in {wall:.3f} s "
+             f"({out.numel() / wall:.1f} tokens/s end to end); "
+             f"flash-attention launches {nl} (one prefill of "
+             f"{llama.n_layers} layers), plain calls on CUDA tensors {pc}")
+        return out
+
+    def breakdown(tag, prompt, n_new, window):
+        """Prefill seconds and decode ms per token of the same request."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TD.prefill(llama, params, prompt,
+                                   prompt.shape[1] + n_new,
+                                   window_override=window)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits[:, -1]).all())
+        last = torch.argmax(logits[:, -1, :llama.vocab_size], -1)[:, None]
+        del logits
+        step = TD.make_serve_step(llama, window_override=window)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_new - 1):
+            last, _, cache = step(params, cache, last, prompt.shape[1] + t)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / (n_new - 1)
+        print(f"  {tag}: prefill {t_pre:.4f} s "
+              f"({prompt.numel() / t_pre:.0f} prompt tokens/s), decode "
+              f"{1e3 * t_dec:.3f} ms per step ({prompt.shape[0] / t_dec:.1f}"
+              f" tokens/s at batch {prompt.shape[0]})", flush=True)
+        gate(finite, f"{tag}: prefill logits finite")
+        return cache
+
+    out1 = serve(f"full attention b={b} prompt={s_len}", prompt, n_new,
+                 None)
+    out2 = serve(f"full attention b={b} prompt={s_len}, again", prompt,
+                 n_new, None)
+    gate(torch.equal(out1, out2), "greedy decoding gives identical tokens "
+         "on a second run")
+    breakdown(f"full attention b={b} prompt={s_len}", prompt, n_new, None)
+
+    extra = 4
+    with torch.no_grad():
+        tok = torch.cat([prompt, out1[:, :extra]], 1)
+        full, _ = TT.forward(llama, params, tok)
+        logits, cache = TD.prefill(llama, params, prompt, s_len + extra)
+
+        def rel32(a, c):
+            a, c = a.float(), c.float()
+            return float((a - c).norm() / c.norm())
+        e_pre = rel32(logits, full[:, :s_len])
+        finite = bool(torch.isfinite(full).all())
+        del logits
+        e_dec = []
+        for t in range(extra):
+            lg, cache = TT.decode_step(llama, params, cache,
+                                       tok[:, s_len + t:s_len + t + 1],
+                                       s_len + t)
+            e_dec.append(rel32(lg[:, 0], full[:, s_len + t]))
+        del full, cache
+    gate(finite and e_pre <= GATE_SERVE and max(e_dec) <= GATE_SERVE,
+         f"prefill + teacher-forced decode against one forward over "
+         f"{s_len + extra} tokens: rel prefill {e_pre:.2e}, decode "
+         + ", ".join(f"{e:.2e}" for e in e_dec))
+    torch.cuda.empty_cache()
+
+    wb, ws, wn, ww = WINDOWED
+    prompt_w = torch.randint(0, llama.vocab_size, (wb, ws), generator=mgen,
+                             device=dev)
+    serve(f"window {ww} b={wb} prompt={ws}", prompt_w, wn, ww)
+    cache = breakdown(f"window {ww} b={wb} prompt={ws}", prompt_w, wn, ww)
+    klen = cache["units"]["b0"]["k"].shape[2]
+    gate(klen == ww, f"window cache holds {klen} positions (window {ww}, "
+         f"prompt {ws})")
+    del cache
+    print(f"  peak device memory of the serving runs "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    device_profile(torch, f"prefill b={b} prompt={s_len}",
+                   lambda: TD.prefill(llama, params, prompt, s_len + n_new))
+    del params
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",
@@ -585,6 +954,21 @@ def main() -> int:
              launches=launches["score_cn"], max_abs_err=errs["score_cn"],
              **{k: main_rows["score_cn"][k] for k in
                 ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}),
+        dict(name="swa_attention", route="cuda",
+             source="src/repro_torch/csrc/swa.cu",
+             replaces="src/repro/kernels/swa/kernel.py:105",
+             launches=launches["swa"], max_abs_err=errs["swa"],
+             **main_rows["swa"]),
+        dict(name="cl_logits", route="cuda",
+             source="src/repro_torch/csrc/score.cu",
+             replaces="src/repro/kernels/cl/kernel.py:114",
+             launches=launches["cl_logits"], max_abs_err=errs["cl_logits"],
+             **main_rows["cl_logits"]),
+        dict(name="gram", route="cuda",
+             source="src/repro_torch/csrc/gram.cu",
+             replaces="src/repro/kernels/gram/kernel.py:47",
+             launches=launches["gram"], max_abs_err=errs["gram"],
+             **main_rows["gram"]),
     ]
     if failures:
         print(f"chip_smoke: {len(failures)} gate(s) failed:",

@@ -1,9 +1,10 @@
 """PyTorch / CUDA port of the distributed pseudo-likelihood estimator.
 
 The JAX package ``repro`` is the reference; this package carries the same
-public API (``Plan(...).session().fit(X)``) on PyTorch, with the TPU kernels
-of the fit path rewritten as CUDA kernels for Hopper (``csrc/``). It imports
-neither ``jax`` nor ``repro``.
+public API (``Plan(...).session().fit(X)``) on PyTorch, and the serving
+path of the reference's dense GQA transformers (:mod:`repro_torch.models`,
+:mod:`repro_torch.configs`), with every TPU kernel rewritten as a CUDA
+kernel for Hopper (``csrc/``). It imports neither ``jax`` nor ``repro``.
 
     import repro_torch.api as A
     res = A.Plan(graph=g, family="ising", combiners=("diagonal",)

@@ -22,6 +22,7 @@ from ..core.asymptotics import param_owners
 from ..core.batched import degree_buckets, fit_all_local_batched
 from ..core.estimators import LocalFit
 from ..core.graphs import Graph
+from ..device import resolve_device
 from ..kernels.build import LIBRARIES
 from .plan import Plan
 from .result import EstimateResult
@@ -40,18 +41,6 @@ def _tensor(a) -> torch.Tensor:
     if isinstance(a, np.ndarray) and not a.flags.writeable:
         a = a.copy()
     return torch.as_tensor(a)
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; None means the CUDA card, and
-    raises when there is none."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "plain PyTorch path on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 class EstimationSession:

@@ -1,7 +1,9 @@
 // Fused channelized score statistics of the pseudo-likelihood.
 //
 // Replaces the TPU kernel src/repro/kernels/cl/kernel.py::cl_score_channels,
-// both of its Pallas bodies: _score_kernel_c1 (C = 1) and _score_kernel (C > 1).
+// both of its Pallas bodies: _score_kernel_c1 (C = 1) and _score_kernel (C > 1),
+// and, through its epilogue-free instantiation (kind kLogits, entry
+// repro_cl_logits), the TPU kernel cl_logits of the same file (_logits_kernel).
 // For F (C, n, p), Theta (C, p, p), mask A (p, p) and bias b (C, p):
 //
 //   eta[c, s, i] = sum_j F[c, s, j] Theta[c, j, i] A[j, i] + b[c, i]
@@ -23,18 +25,21 @@
 //  (b) a tiled product S[c,e] = r_c^T F_e reducing over samples. Samples are
 //      split across blocks when the output has few tiles (at p = 100 it is a
 //      handful), and a third small kernel sums the splits in a fixed order,
-//      so the result is deterministic without float atomics.
+//      so the result is deterministic without float atomics. Its body lives
+//      in gram_body.cuh, which gram.cu shares.
+// cl_logits is (a) alone with the epilogue writing eta = F (Theta*A) + b and
+// nothing else: a dense float32 product of 2*C*n*p*p operations, bound by the
+// FMA rate at the sizes above.
 // Both use plain float32 FMA, not TF32: the float32 parity gates need it.
 // Ragged edges of n and p are masked in the loads and stores.
 #include <cuda_runtime.h>
 
+#include "gram_body.cuh"
+
 namespace {
 
-constexpr int kTile = 64;     // output tile edge (rows and columns)
-constexpr int kDepth = 16;    // reduction depth per shared-memory stage
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-
-enum Kind { kIsing = 0, kGaussian = 1, kPotts = 2 };
+// kLogits writes eta only (r is not touched): the cl_logits contract
+enum Kind { kIsing = 0, kGaussian = 1, kPotts = 2, kLogits = 3 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
 
@@ -104,9 +109,11 @@ logits_residual_kernel(const float* __restrict__ F, const float* __restrict__ th
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         e[c] = acc[c][a][b] + bias[c * p + i];
-        y[c] = F[c * np + off];              // the node's own features: the target
         eta[c * np + off] = e[c];
       }
+      if (KIND == kLogits) continue;
+#pragma unroll
+      for (int c = 0; c < C; ++c) y[c] = F[c * np + off];   // the node's own features
       if (KIND == kIsing) {
         r[off] = 2.0f * y[0] * sigmoidf(-2.0f * y[0] * e[0]);
       } else if (KIND == kGaussian) {
@@ -126,76 +133,6 @@ logits_residual_kernel(const float* __restrict__ F, const float* __restrict__ th
   }
 }
 
-// partial[split, c, e, i, j] = sum over this split's samples of
-// r[c, s, i] F[e, s, j]; with scale_out (a single split) it writes S = that / n.
-__global__ void __launch_bounds__(kThreads)
-score_gram_kernel(const float* __restrict__ r, const float* __restrict__ F,
-                  float* __restrict__ out, int C, int n, int p, int chunk, float n_f,
-                  int scale_out) {
-  __shared__ float As[kDepth][kTile];   // r tile, stored (sample, i)
-  __shared__ float Bs[kDepth][kTile];   // F tile, stored (sample, j)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  const int ce = blockIdx.z % (C * C), split = blockIdx.z / (C * C);
-  const int c = ce / C, e = ce % C;
-  const size_t np = (size_t)n * p;
-  const float* rc = r + c * np;
-  const float* Fe = F + e * np;
-  const int s_begin = split * chunk, s_end = min(n, s_begin + chunk);
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.0f;
-
-  for (int k0 = s_begin; k0 < s_end; k0 += kDepth) {
-    for (int idx = threadIdx.x; idx < kTile * kDepth; idx += kThreads) {
-      const int kk = idx / kTile, col = idx % kTile;
-      const int s = k0 + kk;
-      const bool s_ok = s < s_end;
-      As[kk][col] = (s_ok && i0 + col < p) ? rc[(size_t)s * p + i0 + col] : 0.0f;
-      Bs[kk][col] = (s_ok && j0 + col < p) ? Fe[(size_t)s * p + j0 + col] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[kk][ty + 16 * a];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) bv[b] = Bs[kk][tx + 16 * b];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-    }
-    __syncthreads();
-  }
-
-  const size_t pp = (size_t)p * p;
-  float* o = out + ((size_t)split * C * C + ce) * pp;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = i0 + ty + 16 * a;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int j = j0 + tx + 16 * b;
-      if (i < p && j < p) o[(size_t)i * p + j] = scale_out ? acc[a][b] / n_f : acc[a][b];
-    }
-  }
-}
-
-// S = (sum over splits, in split order) / n.
-__global__ void score_reduce_kernel(const float* __restrict__ partial, float* __restrict__ S,
-                                    long long total, int splits, float n_f) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  float sum = 0.0f;
-  for (int s = 0; s < splits; ++s) sum += partial[(size_t)s * total + idx];
-  S[idx] = sum / n_f;
-}
-
 template <int KIND, int C>
 cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
                           const float* bias, float* eta, float* r, int n, int p,
@@ -206,15 +143,17 @@ cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
   return cudaGetLastError();
 }
 
-cudaError_t launch_potts(int C, const float* F, const float* theta, const float* mask,
-                         const float* bias, float* eta, float* r, int n, int p,
-                         cudaStream_t stream) {
+// The channel count as a template parameter, C = 1 .. 5.
+template <int KIND>
+cudaError_t launch_channels(int C, const float* F, const float* theta, const float* mask,
+                            const float* bias, float* eta, float* r, int n, int p,
+                            cudaStream_t stream) {
   switch (C) {
-    case 1: return launch_logits<kPotts, 1>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 2: return launch_logits<kPotts, 2>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 3: return launch_logits<kPotts, 3>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 4: return launch_logits<kPotts, 4>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 5: return launch_logits<kPotts, 5>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 1: return launch_logits<KIND, 1>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 2: return launch_logits<KIND, 2>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 3: return launch_logits<KIND, 3>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 4: return launch_logits<KIND, 4>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 5: return launch_logits<KIND, 5>(F, theta, mask, bias, eta, r, n, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -223,8 +162,8 @@ cudaError_t launch_potts(int C, const float* F, const float* theta, const float*
 
 extern "C" {
 
-// Largest channel count the Potts instantiations cover: the static shared
-// tiles of the logits kernel hold 2*C*16*64 floats, under 48 KB up to C = 5.
+// Largest channel count the Potts and logits instantiations cover: the static
+// shared tiles of the logits kernel hold 2*C*16*64 floats, under 48 KB up to C = 5.
 int repro_score_max_channels() { return 5; }
 
 // kind: 0 ising, 1 gaussian, 2 potts. All tensors float32, contiguous.
@@ -247,24 +186,22 @@ int repro_score_channels(int kind, int C, const float* F, const float* theta,
       err = launch_logits<kGaussian, 1>(F, theta, mask, bias, eta, r, n, p, stream);
       break;
     case kPotts:
-      err = launch_potts(C, F, theta, mask, bias, eta, r, n, p, stream);
+      err = launch_channels<kPotts>(C, F, theta, mask, bias, eta, r, n, p, stream);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const int tiles = (p + kTile - 1) / kTile;
-  dim3 grid(tiles, tiles, C * C * splits);
-  float* out = splits == 1 ? S : partial;
-  score_gram_kernel<<<grid, kThreads, 0, stream>>>(r, F, out, C, n, p, chunk,
-                                                   static_cast<float>(n), splits == 1);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long total = (long long)C * C * p * p;
-  const int threads = 256;
-  score_reduce_kernel<<<static_cast<unsigned>((total + threads - 1) / threads), threads, 0,
-                        stream>>>(partial, S, total, splits, static_cast<float>(n));
-  return cudaGetLastError();
+  return launch_gram(r, F, partial, S, C, n, p, splits, chunk, stream);
+}
+
+// eta[c] = F[c] (Theta[c] * A) + b[c] for C = 1 .. repro_score_max_channels();
+// all tensors float32, contiguous. Returns a cudaError_t (0 on success).
+int repro_cl_logits(int C, const float* F, const float* theta, const float* mask,
+                    const float* bias, float* eta, int n, int p, void* stream_handle) {
+  if (n <= 0 || p <= 0) return cudaErrorInvalidValue;
+  return launch_channels<kLogits>(C, F, theta, mask, bias, eta, nullptr, n, p,
+                                  static_cast<cudaStream_t>(stream_handle));
 }
 
 }  // extern "C"

@@ -1,4 +1,5 @@
-"""Carry plans and parameters across from the reference package.
+"""Carry plans, estimates and model parameters across from the reference
+package.
 
 The port keeps the reference's layouts by design, so these are checked
 identities: they validate what they are given and hand back the port's own
@@ -13,6 +14,9 @@ import torch
 
 from .api.plan import Plan
 from .core.estimators import LocalFit
+from .device import resolve_device
+from .models.common import ArchConfig, ParamSpec
+from .models.transformer import abstract_params
 
 
 def plan_from_reference(d: dict) -> Plan:
@@ -50,3 +54,30 @@ def local_fits_from_numpy(fits: Sequence[Optional[object]]) -> List[LocalFit]:
         out.append(LocalFit(i=int(f.i), beta=list(f.beta), theta=theta.copy(),
                             H=H.copy(), J=J.copy(), V=V.copy(), s=s.copy()))
     return out
+
+
+def params_from_numpy(tree, cfg: ArchConfig, device=None):
+    """The port's model parameters from the reference's parameter pytree
+    (nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray,
+    model_init(cfg, key))``), each checked against the port's spec of
+    ``cfg`` and cast to its dtype on ``device`` (default the CUDA card;
+    raises without one)."""
+    device = resolve_device(device)
+
+    def convert(spec_node, node, path):
+        if isinstance(spec_node, ParamSpec):
+            arr = np.asarray(node)
+            if arr.shape != spec_node.shape:
+                raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, the "
+                                 f"port's spec has {spec_node.shape}")
+            if arr.dtype.name == "bfloat16":     # numpy has no bf16 of its own
+                arr = arr.astype(np.float32)
+            dt = spec_node.dtype or cfg.torch_dtype
+            return torch.tensor(arr).to(device=device, dtype=dt)
+        if not isinstance(node, dict) or set(node) != set(spec_node):
+            got = sorted(node) if isinstance(node, dict) else type(node)
+            raise ValueError(f"{'/'.join(path) or 'params'}: keys {got}, the "
+                             f"port's spec has {sorted(spec_node)}")
+        return {k: convert(spec_node[k], node[k], path + (k,))
+                for k in spec_node}
+    return convert(abstract_params(cfg), tree, ())

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded through ``ctypes``. A source that includes
 no PyTorch header builds in seconds. All sources build in parallel, one
 ``nvcc`` each, into ``build/repro_torch/`` at the repository root; the
-library file name carries a hash of its source and flags, so an edited
-source never loads a stale build. Importing this module runs nothing: only
+library file name carries a hash of its source, of every ``csrc/*.cuh`` it
+includes and of the flags, so an edited source or shared header never loads
+a stale build. Importing this module runs nothing: only
 :meth:`KernelLibraries.get` (reached from the first CUDA launch) builds.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -22,7 +24,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("newton", "score")
+SOURCES = ("newton", "score", "gram", "swa")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -39,8 +41,18 @@ SIGNATURES = {
         "repro_score_max_channels": ([], _I),
         "repro_score_channels": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _P], _I),
+        "repro_cl_logits": ([_I, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+    },
+    "gram": {
+        "repro_gram": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "swa": {
+        "repro_swa_supports": ([_I], _I),
+        "repro_swa_attention": ([_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                                 _P, _P], _I),
     },
 }
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+\.cuh)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -55,7 +67,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    text = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(text)
+    for header in sorted(set(_LOCAL_INCLUDE.findall(text.decode()))):
+        h.update(header.encode())
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

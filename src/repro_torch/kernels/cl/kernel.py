@@ -1,9 +1,11 @@
-"""Wrapper of the fused channelized score kernel ``csrc/score.cu``.
+"""Wrappers of the CL kernels of ``csrc/score.cu``.
 
 One CUDA kernel family for both TPU bodies of ``cl_score_channels`` (the
 single-channel one and the channelized one): the channel count is a template
 parameter of the kernel. The fit path always hands it float32 operands
 (:func:`repro_torch.kernels.cl.family.fused_pseudo_score` casts them).
+:func:`cl_logits` is the same masked product without the residual and Gram
+stages (the TPU's ``cl_logits``); it takes float32 operands on CUDA.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import torch
 
 from ..build import LIBRARIES, check
 from .epilogues import KIND_CODES, require_epilogue
-from .ref import cl_score_channels_ref
+from .ref import cl_logits_ref, cl_score_channels_ref
 
 #: output tile edge of the kernel (rows and columns)
 _TILE = 64
@@ -33,6 +35,61 @@ def score_launch_shape(C: int, n: int, p: int):
     return splits, chunk
 
 
+def _check_operands(name, F, theta, mask, bias):
+    """Types, shapes, device and layout the CL kernels take on CUDA."""
+    C, n, p = F.shape
+    ops = (F, theta, mask, bias)
+    if any(t.dtype != torch.float32 for t in ops):
+        raise TypeError(f"{name} takes float32 operands on CUDA, "
+                        f"got {[str(t.dtype) for t in ops]}")
+    if theta.shape != (C, p, p) or mask.shape != (p, p) \
+            or bias.shape != (C, p):
+        raise ValueError(
+            f"shape mismatch: F {tuple(F.shape)}, theta {tuple(theta.shape)},"
+            f" mask {tuple(mask.shape)}, bias {tuple(bias.shape)}")
+    if any(t.device != F.device for t in ops):
+        raise ValueError(f"{name} operands must share one device")
+    if any(not t.is_contiguous() for t in ops):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
+def cl_logits(F, theta, mask, bias):
+    """Channelized masked logits ``eta_c = F_c (theta_c * mask) + b_c``.
+
+    F: (C, n, p); theta: (C, p, p); mask: (p, p); bias: (C, p). Returns
+    (C, n, p). CUDA operands launch the kernel (one launch counted in
+    ``cl_logits.launches``), must be float32 and have at most
+    ``repro_score_max_channels()`` channels; CPU operands take the plain
+    version.
+    """
+    if F.device.type != "cuda":
+        return cl_logits_ref(F, theta, mask, bias)
+    _check_operands("cl_logits", F, theta, mask, bias)
+    C, n, p = F.shape
+    lib = LIBRARIES.get("score")
+    if C > lib.repro_score_max_channels():
+        raise ValueError(f"the logits kernel covers at most "
+                         f"{lib.repro_score_max_channels()} channels, "
+                         f"got C = {C}")
+    eta = torch.empty((C, n, p), dtype=torch.float32, device=F.device)
+    err = lib.repro_cl_logits(C, F.data_ptr(), theta.data_ptr(),
+                              mask.data_ptr(), bias.data_ptr(),
+                              eta.data_ptr(), n, p,
+                              torch.cuda.current_stream(F.device).cuda_stream)
+    check(err, "cl_logits kernel")
+    cl_logits.launches += 1
+    return eta
+
+
+cl_logits.launches = 0
+
+
+def ising_cl_logits(x, theta, mask, bias):
+    """``eta = x (theta * mask) + bias``: the C = 1 instance of
+    :func:`cl_logits` for x (n, p), theta and mask (p, p), bias (p,)."""
+    return cl_logits(x[None], theta[None], mask, bias[None])[0]
+
+
 def cl_score_channels(F, theta, mask, bias, *, kind: str):
     """(eta, r, S) fused channelized score statistics.
 
@@ -47,20 +104,8 @@ def cl_score_channels(F, theta, mask, bias, *, kind: str):
     require_epilogue(kind)
     if F.device.type != "cuda":
         return cl_score_channels_ref(F, theta, mask, bias, kind)
+    _check_operands("cl_score_channels", F, theta, mask, bias)
     C, n, p = F.shape
-    ops = (F, theta, mask, bias)
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError("cl_score_channels takes float32 operands on CUDA, "
-                        f"got {[str(t.dtype) for t in ops]}")
-    if theta.shape != (C, p, p) or mask.shape != (p, p) \
-            or bias.shape != (C, p):
-        raise ValueError(
-            f"shape mismatch: F {tuple(F.shape)}, theta {tuple(theta.shape)},"
-            f" mask {tuple(mask.shape)}, bias {tuple(bias.shape)}")
-    if any(t.device != F.device for t in ops):
-        raise ValueError("cl_score_channels operands must share one device")
-    if any(not t.is_contiguous() for t in ops):
-        raise ValueError("cl_score_channels needs contiguous operands")
     lib = LIBRARIES.get("score")
     if kind == "potts" and C > lib.repro_score_max_channels():
         raise ValueError(f"the score kernel covers at most "

@@ -7,13 +7,22 @@ package's ``use_pallas=False``); it is never taken silently.
 """
 from __future__ import annotations
 
-from .kernel import cl_score_channels
+from .kernel import cl_score_channels, ising_cl_logits
 from .newton import bucket_newton_stats, bucket_newton_stats_ref
-from .ref import cl_score_channels_ref
+from .ref import cl_score_channels_ref, ising_cl_logits_ref
+
 
 def resolve_kernel_path(device, use_kernel: bool = True) -> str:
     """``"cuda"`` for a CUDA device unless ``use_kernel`` is False."""
     return "cuda" if use_kernel and device.type == "cuda" else "ref"
+
+
+def conditional_logits_op(x, theta, mask, bias, *, use_kernel: bool = True):
+    """Masked conditional logits ``x (theta * mask) + bias`` of the
+    single-channel (n, p) entry."""
+    if resolve_kernel_path(x.device, use_kernel) == "cuda":
+        return ising_cl_logits(x, theta, mask, bias)
+    return ising_cl_logits_ref(x, theta, mask, bias)
 
 
 def score_stats_channels_op(F, theta, mask, bias, *, kind: str,

@@ -1,7 +1,23 @@
-"""Plain PyTorch version of the fused channelized score statistics."""
+"""Plain PyTorch versions of the CL kernels: masked logits and the fused
+channelized score statistics."""
 import torch
 
 from .epilogues import require_epilogue
+
+
+def cl_logits_ref(F, theta, mask, bias):
+    """Channelized masked logits ``eta_c = F_c (theta_c * mask) + b_c``.
+
+    F: (C, n, p); theta: (C, p, p); mask: (p, p); bias: (C, p). Computes in
+    F's type and returns (C, n, p) in it, as the reference does.
+    """
+    return (torch.einsum("cnj,cji->cni", F, theta * mask[None])
+            + bias[:, None, :]).to(F.dtype)
+
+
+def ising_cl_logits_ref(x, theta, mask, bias):
+    """``eta = x (theta * mask) + bias``: the single-channel (n, p) entry."""
+    return (x @ (theta * mask) + bias[None, :]).to(x.dtype)
 
 
 def cl_score_channels_ref(F, theta, mask, bias, kind: str):

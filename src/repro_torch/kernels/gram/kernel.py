@@ -1,0 +1,42 @@
+"""Wrapper of the Gram kernel ``csrc/gram.cu``: ``G = S^T S / n``.
+
+The kernel is the score kernel's Gram body (``csrc/gram_body.cuh``) with
+r = F = S and one channel, so it splits the sample axis the same way.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..build import LIBRARIES, check
+from ..cl.kernel import score_launch_shape
+from .ref import gram_ref
+
+
+def gram(s):
+    """G = s^T s / n for s (n, d) -> (d, d) float32.
+
+    A CUDA tensor launches the kernel (one launch counted in
+    ``gram.launches``) and must be a contiguous float32 matrix; a CPU tensor
+    takes the plain version.
+    """
+    if s.device.type != "cuda":
+        return gram_ref(s)
+    if s.dtype != torch.float32:
+        raise TypeError(f"gram takes a float32 matrix on CUDA, got {s.dtype}")
+    if s.dim() != 2 or not s.is_contiguous():
+        raise ValueError(f"gram needs a contiguous (n, d) matrix, got shape "
+                         f"{tuple(s.shape)}")
+    n, d = s.shape
+    splits, chunk = score_launch_shape(1, n, d)
+    G = torch.empty((d, d), dtype=torch.float32, device=s.device)
+    partial = (torch.empty(splits * d * d, dtype=torch.float32,
+                           device=s.device) if splits > 1 else G)
+    err = LIBRARIES.get("gram").repro_gram(
+        s.data_ptr(), partial.data_ptr(), G.data_ptr(), n, d, splits, chunk,
+        torch.cuda.current_stream(s.device).cuda_stream)
+    check(err, "gram kernel")
+    gram.launches += 1
+    return G
+
+
+gram.launches = 0

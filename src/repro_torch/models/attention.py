@@ -1,0 +1,232 @@
+"""GQA attention blocks: full-sequence (train/prefill) and one-token decode
+over a KV cache. The port of the GQA part of ``repro.models.attention``.
+
+``sdpa`` takes the flash-attention kernel (``repro_torch.kernels.swa``) for
+a CUDA tensor, as the reference takes its Pallas kernel for causal attention
+on the TPU. On the CPU it follows the reference's dispatch: a blocked
+online-softmax scan over KV blocks above ``BLOCK_THRESHOLD`` query rows,
+materialised scores below it. K and V may come with fewer heads than q (the
+kernel maps heads; the plain paths repeat them), so ``gqa_apply`` hands them
+over un-repeated.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from ..kernels.swa.ops import swa_op
+from .common import ArchConfig, apply_rope, rms_norm, spec
+
+BLOCK_THRESHOLD = 8192
+KV_BLOCK = 1024
+NEG_INF = -2.0e38
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor to be allocated (a cache leaf)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+# ------------------------------------------------------------------- specs
+def gqa_spec(cfg: ArchConfig, stack: int = 0):
+    hd = cfg.hd
+    st = (stack,) if stack else ()
+    sa = (None,) if stack else ()
+    p = {
+        "wq": spec(st + (cfg.d_model, cfg.n_heads * hd), sa + (None, "model")),
+        "wk": spec(st + (cfg.d_model, cfg.n_kv_heads * hd), sa + (None, "model")),
+        "wv": spec(st + (cfg.d_model, cfg.n_kv_heads * hd), sa + (None, "model")),
+        "wo": spec(st + (cfg.n_heads * hd, cfg.d_model), sa + ("model", None)),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = spec(st + (hd,), sa + (None,), init="ones",
+                           dtype=torch.float32)
+        p["k_norm"] = spec(st + (hd,), sa + (None,), init="ones",
+                           dtype=torch.float32)
+    return p
+
+
+# ---------------------------------------------------------------- core math
+def _repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, kh, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, kh, n_rep, d).reshape(
+        b, s, kh * n_rep, d)
+
+
+def _plain_attention(q, k, v, *, window: int):
+    """Materialised-score causal attention. q (B,Sq,H,D), k/v (B,Sk,H,D)."""
+    sq, d = q.shape[1], q.shape[3]
+    sk = k.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
+        * (1.0 / math.sqrt(d))
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _blocked_attention(q, k, v, *, window: int):
+    """Flash-style causal online-softmax loop over KV blocks; O(KV_BLOCK)
+    memory, equal to :func:`_plain_attention`."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, h, d), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, KV_BLOCK):
+        kblk, vblk = k[:, k0:k0 + KV_BLOCK], v[:, k0:k0 + KV_BLOCK]
+        kpos = torch.arange(k0, k0 + kblk.shape[1], device=q.device)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, kblk).to(torch.float32) * scale
+        mask = kpos[None, :] <= qpos[:, None]
+        if window:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        s = s.masked_fill(~mask[None, None], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr.transpose(1, 2)[..., None] + torch.einsum(
+            "bhqk,bkhd->bqhd", p.to(q.dtype), vblk).to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]
+    return out.to(q.dtype)
+
+
+def sdpa(q, k, v, *, window: int = 0, force_blocked: Optional[bool] = None):
+    """Causal attention dispatch. q (B,S,H,D); k, v (B,S,KH,D), H % KH == 0.
+
+    A CUDA tensor runs the flash-attention kernel; a CPU tensor the blocked
+    scan for long sequences, materialised scores for short ones (K and V
+    repeated to H heads for both).
+    """
+    if q.is_cuda:
+        return swa_op(q, k, v, window=window)
+    n_rep = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    blocked = (q.shape[1] > BLOCK_THRESHOLD if force_blocked is None
+               else force_blocked)
+    if blocked:
+        return _blocked_attention(q, k, v, window=window)
+    return _plain_attention(q, k, v, window=window)
+
+
+# --------------------------------------------------------------- GQA block
+def _cache_from_seq(k, v, cache_len: int, window: int, kh: int):
+    """Arrange full-sequence K/V (B, S, kv, hd) into the decode cache layout.
+
+    Full attention: first S slots of a (B, cache_len) buffer. Sliding window:
+    ring buffer of size min(window, cache_len) with slot = pos % eff_len.
+    """
+    s = k.shape[1]
+    k = _repeat_kv(k, kh // k.shape[2])
+    v = _repeat_kv(v, kh // v.shape[2])
+    eff = min(window, cache_len) if window else cache_len
+    if window and s >= eff:
+        shift = (s - eff) % eff
+        k_c = torch.roll(k[:, s - eff:], shift, dims=1)
+        v_c = torch.roll(v[:, s - eff:], shift, dims=1)
+    else:
+        pad = (0, 0, 0, 0, 0, eff - s)
+        k_c = torch.nn.functional.pad(k, pad)
+        v_c = torch.nn.functional.pad(v, pad)
+    return {"k": k_c, "v": v_c}
+
+
+def _qkv(cfg: ArchConfig, p: Dict, x, positions):
+    """Projected, normed and rotated q (B,S,H,hd), k and v (B,S,KV,hd)."""
+    b, s, _ = x.shape
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def gqa_apply(cfg: ArchConfig, p: Dict, x, positions, *,
+              window: Optional[int] = None, return_cache: bool = False,
+              cache_len: int = 0):
+    """Full-sequence GQA attention (train/prefill). x: (B, S, d_model)."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x, positions)
+    w = cfg.window if window is None else window
+    cache = None
+    if return_cache:
+        cache = _cache_from_seq(k, v, cache_len or s, w, _cache_heads(cfg))
+    out = sdpa(q, k, v, window=w)
+    out = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"]
+    return (out, cache) if return_cache else out
+
+
+def gqa_cache_spec(cfg: ArchConfig, batch: int, max_len: int,
+                   stack: int = 0, window: int = 0):
+    """KV cache specs: (stack, batch, eff_len, cache heads, hd) for k and v,
+    eff_len = min(max_len, window) with a window."""
+    eff_len = min(max_len, window) if window else max_len
+    st = (stack,) if stack else ()
+    shape = st + (batch, eff_len, _cache_heads(cfg), cfg.hd)
+    return {"k": TensorSpec(shape, cfg.torch_dtype),
+            "v": TensorSpec(shape, cfg.torch_dtype)}
+
+
+def _cache_heads(cfg: ArchConfig) -> int:
+    """KV-cache head count, as the reference chooses it: the smallest
+    multiple of n_kv_heads that divides n_heads and is divisible by 16 (so
+    the reference's cache shards over its model axis), else n_kv_heads."""
+    kh = cfg.n_kv_heads
+    k = kh
+    while k <= cfg.n_heads:
+        if cfg.n_heads % k == 0 and k % 16 == 0:
+            return k
+        k += kh
+    return kh
+
+
+def gqa_decode(cfg: ArchConfig, p: Dict, x, cache: Dict, pos: int, *,
+               window: int = 0):
+    """One-token decode with a KV cache. x: (B, 1, d); pos: int position.
+
+    Writes the new K/V into ``cache`` in place (the reference returns an
+    updated copy; in place saves a cache-sized copy per layer and step) and
+    returns (out, cache).
+    """
+    b = x.shape[0]
+    hd = cfg.hd
+    q, k, v = _qkv(cfg, p, x, torch.full((1,), pos, device=x.device))
+    kh = _cache_heads(cfg)
+    k = _repeat_kv(k, kh // cfg.n_kv_heads)
+    v = _repeat_kv(v, kh // cfg.n_kv_heads)
+    eff_len = cache["k"].shape[1]
+    slot = pos % eff_len if window else pos
+    cache["k"][:, slot] = k[:, 0]
+    cache["v"][:, slot] = v[:, 0]
+    kpos = torch.arange(eff_len, device=x.device)
+    if window:
+        valid = (kpos <= slot) | (pos >= eff_len)   # ring buffer full => all
+    else:
+        valid = kpos <= pos
+    # grouped-query form: KV heads are never repeated for the scores
+    qg = q.reshape(b, 1, kh, cfg.n_heads // kh, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache["k"]).to(torch.float32)
+    s = s * (1.0 / math.sqrt(hd))
+    s = s.masked_fill(~valid[None, None, None, None, :], NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache["v"])
+    out = out.reshape(b, 1, cfg.n_heads * hd) @ p["wo"]
+    return out, cache

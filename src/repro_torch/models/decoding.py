@@ -1,0 +1,71 @@
+"""Autoregressive decoding over KV caches: prefill and batched greedy or
+temperature generation. The port of ``repro.models.decoding``.
+
+``prefill`` is ``forward(..., return_cache=True)``, so prefill attention
+runs the flash-attention kernel on the card; decode steps attend over the
+cache with plain tensor code, as the reference does.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import transformer as T
+from .common import ArchConfig
+
+
+def make_serve_step(cfg: ArchConfig, *, window_override: Optional[int] = None,
+                    temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
+    """Returns serve_step(params, cache, tokens, pos) -> (next (B, 1),
+    logits, cache): greedy, or sampled at ``temperature`` from
+    ``generator``."""
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = T.decode_step(cfg, params, cache, tokens, pos,
+                                      window_override=window_override)
+        last = logits[:, -1, : cfg.vocab_size].to(torch.float32)
+        if temperature > 0.0:
+            nxt = torch.multinomial(torch.softmax(last / temperature, -1), 1,
+                                    generator=generator)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt[:, None], logits, cache
+    return serve_step
+
+
+def prefill(cfg: ArchConfig, params, tokens, max_len: int, *,
+            window_override: Optional[int] = None):
+    """Run the full-sequence forward and return (logits, cache) with the
+    cache sized to ``max_len`` (prompt written at positions [0, S))."""
+    logits, _, cache = T.forward(cfg, params, tokens, return_cache=True,
+                                 cache_len=max_len,
+                                 window_override=window_override)
+    return logits, cache
+
+
+@torch.no_grad()
+def generate(cfg: ArchConfig, params, prompt, n_new: int, *,
+             temperature: float = 0.0, seed: int = 0,
+             window_override: Optional[int] = None):
+    """Greedy/temperature generation. prompt: (B, S) int64 -> (B, n_new).
+
+    The first new token is the prefill's argmax, as in the reference; with
+    ``temperature > 0`` the rest are sampled from a ``torch.Generator``
+    seeded with ``seed`` on the prompt's device.
+    """
+    s = prompt.shape[1]
+    logits, cache = prefill(cfg, params, prompt, s + n_new,
+                            window_override=window_override)
+    generator = None
+    if temperature > 0.0:
+        generator = torch.Generator(device=prompt.device)
+        generator.manual_seed(seed)
+    step = make_serve_step(cfg, window_override=window_override,
+                           temperature=temperature, generator=generator)
+    last = torch.argmax(logits[:, -1, : cfg.vocab_size], dim=-1)[:, None]
+    out = [last]
+    for t in range(n_new - 1):
+        last, _, cache = step(params, cache, last, s + t)
+        out.append(last)
+    return torch.cat(out, dim=1)

@@ -11,9 +11,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.api as TA  # noqa: E402
+import repro_torch.configs as TC  # noqa: E402
 from repro_torch.core import grid_graph, star_graph  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
+from repro_torch.kernels.gram import kernel as gmod  # noqa: E402
+from repro_torch.kernels.swa import kernel as smod  # noqa: E402
+from repro_torch.kernels.swa.ops import swa_op  # noqa: E402
+from repro_torch.models import decoding as TD  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 KINDS = {"ising": 1, "gaussian": 1, "potts": 2}
@@ -99,3 +105,114 @@ def test_fit_through_kernels_matches_plain_fit(dev, family):
     for name in ("diagonal", "optimal"):
         np.testing.assert_allclose(res.combined[name], plain.combined[name],
                                    rtol=0, atol=1e-4)
+
+
+def _qkv(dev, b, s, h, kh, d, dtype, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, s, kh, d), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("window", [0, 1, 100])
+@pytest.mark.parametrize("h,kh", [(6, 2), (4, 4)])
+@pytest.mark.parametrize("s,d", [(1000, 64), (130, 96), (77, 128),
+                                 (200, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_matches_plain(dev, dtype, s, d, h, kh, window):
+    q, k, v = _qkv(dev, 2, s, h, kh, d, dtype, seed=s + d + window)
+    n0 = smod.swa_attention.launches
+    got = smod.swa_attention(q, k, v, window=window)
+    assert smod.swa_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    # float32: sums in another order; bfloat16: the kernel rounds p to bf16
+    # for the p v product, held against the plain version in float32
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                  window=window)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def test_swa_kernel_reads_strided_views(dev):
+    # q, k, v as slices of one fused projection: strided, not contiguous
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    qkv = torch.randn((2, 300, 8, 64), generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    got = smod.swa_attention(q, k, v, window=50)
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float(), window=50)
+    assert _rel(got, want) <= 1e-2
+
+
+def test_swa_kernel_refuses_what_it_does_not_take(dev):
+    q, k, v = _qkv(dev, 1, 16, 2, 2, 32, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="head widths"):
+        smod.swa_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 16, 2, 2, 64, torch.float16, seed=0)
+    with pytest.raises(TypeError):
+        smod.swa_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 16, 3, 2, 64, torch.float32, seed=0)
+    with pytest.raises(ValueError, match="multiple"):
+        smod.swa_attention(q, k, v)
+    q, k, v = _qkv(dev, 1, 16, 2, 2, 64, torch.float32, seed=0)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        swa_op(q, k, v)
+
+
+@pytest.mark.parametrize("C,n,p", [(1, 1001, 37), (1, 333, 130),
+                                   (2, 1001, 130), (3, 64, 65)])
+def test_cl_logits_kernel_matches_plain(dev, C, n, p):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + p)
+    F = torch.randn((C, n, p), generator=gen, device=dev)
+    th = torch.randn((C, p, p), generator=gen, device=dev)
+    mask = (torch.rand((p, p), generator=gen, device=dev) < .2).float()
+    bias = torch.randn((C, p), generator=gen, device=dev)
+    n0 = kmod.cl_logits.launches
+    got = kmod.cl_logits(F, th, mask, bias)
+    assert kmod.cl_logits.launches == n0 + 1
+    assert _rel(got, kmod.cl_logits_ref(F, th, mask, bias)) <= 1e-5
+    with pytest.raises(TypeError):
+        kmod.cl_logits(F.double(), th, mask, bias)
+
+
+@pytest.mark.parametrize("n,d", [(1001, 130), (4000, 64), (50, 7)])
+def test_gram_kernel_matches_plain(dev, n, d):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n)
+    S = torch.randn((n, d), generator=gen, device=dev)
+    n0 = gmod.gram.launches
+    got = gmod.gram(S)
+    assert gmod.gram.launches == n0 + 1
+    # float32 sums over samples in another order
+    assert _rel(got, gmod.gram_ref(S)) <= 1e-5
+    with pytest.raises(TypeError):
+        gmod.gram(S.double())
+
+
+def test_reduced_llama_on_the_card_matches_the_cpu(dev):
+    cfg = TC.reduced(TC.get("llama3.2-3b"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = TT.model_init(cfg, gen, "cpu")
+    params_dev = _to(params, dev)
+    tok = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 100)))
+    n0 = smod.swa_attention.launches
+    got, _ = TT.forward(cfg, params_dev, tok.to(dev))
+    assert smod.swa_attention.launches == n0 + cfg.n_layers
+    want, _ = TT.forward(cfg, params, tok)
+    assert _rel(got.cpu(), want) <= 1e-4
+    for window in (None, 16):
+        out = TD.generate(cfg, params_dev, tok[:, :40].to(dev), 8,
+                          window_override=window)
+        ref = TD.generate(cfg, params, tok[:, :40], 8, window_override=window)
+        assert torch.equal(out.cpu(), ref)
+
+
+def _to(tree, dev):
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+            for k, v in tree.items()}

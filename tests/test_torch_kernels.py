@@ -1,7 +1,7 @@
 """The port's plain kernel versions against the JAX reference: epilogues,
-bucket Newton statistics and fused score statistics, on the same numpy
-inputs. On a CPU tensor the kernel wrappers take the plain version and
-count no launch."""
+bucket Newton statistics, fused score statistics, masked logits and the
+Gram product, on the same numpy inputs. On a CPU tensor the kernel wrappers
+take the plain version and count no launch."""
 import numpy as np
 import pytest
 
@@ -11,15 +11,24 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.cl import epilogues as jep  # noqa: E402
+from repro.kernels.cl.kernel import cl_logits as j_logits  # noqa: E402
 from repro.kernels.cl.kernel import cl_score_channels as j_score  # noqa: E402
+from repro.kernels.cl.kernel import ising_cl_logits as j_ising  # noqa: E402
+from repro.kernels.cl.ops import conditional_logits_op as j_logits_op  # noqa: E402,E501
 from repro.kernels.cl.newton import (  # noqa: E402
     bucket_newton_stats as j_newton, bucket_newton_stats_ref as j_newton_ref)
 from repro.kernels.cl.ref import (  # noqa: E402
-    cl_score_channels_ref as j_score_ref)
+    cl_logits_ref as j_logits_ref, cl_score_channels_ref as j_score_ref,
+    ising_cl_logits_ref as j_ising_ref)
+from repro.kernels.gram.kernel import gram as j_gram  # noqa: E402
+from repro.kernels.gram.ref import gram_ref as j_gram_ref  # noqa: E402
+from repro_torch.kernels import gram as tgram  # noqa: E402
 from repro_torch.kernels.cl import epilogues as tep  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
-from repro_torch.kernels.cl.ref import cl_score_channels_ref  # noqa: E402
+from repro_torch.kernels.cl.ops import conditional_logits_op  # noqa: E402
+from repro_torch.kernels.cl.ref import (  # noqa: E402
+    cl_logits_ref, cl_score_channels_ref, ising_cl_logits_ref)
 
 KINDS = {"ising": 1, "gaussian": 1, "potts": 2}
 N = 300          # not a multiple of the 128-sample tiles
@@ -188,3 +197,52 @@ def test_launch_shapes_cover_the_card_and_divide_nothing_evenly():
     splits, chunk = kmod.score_launch_shape(C=1, n=4000, p=100)
     assert splits > 1 and (splits - 1) * chunk < 4000 <= splits * chunk
     assert kmod.score_launch_shape(C=1, n=16384, p=4096) == (1, 16384)
+
+
+@pytest.mark.parametrize("C,p", [(1, 37), (1, 130), (2, 37), (3, 130)])
+def test_logits_ref_matches_pallas_interpret_and_reference(C, p):
+    # n = 300 and p = 37, 130 divide none of the 128 tiles
+    rng = np.random.RandomState(C + p)
+    F, th = rng.randn(C, N, p), 0.3 * rng.randn(C, p, p)
+    A, bias = (rng.rand(p, p) < 0.2).astype(np.float64), rng.randn(C, p)
+    f32, t32 = jnp.float32, torch.float32
+    args_j = [_j(a, f32) for a in (F, th, A, bias)]
+    got = cl_logits_ref(*[_t(a, t32) for a in (F, th, A, bias)])
+    assert got.shape == (C, N, p) and got.dtype == t32
+    for want in (j_logits(*args_j, interpret=True), j_logits_ref(*args_j)):
+        assert _rel(got, want) <= 1e-5     # float32 sums in another order
+    x, t, m, b = F[0], th[0], A, bias[0]
+    got1 = ising_cl_logits_ref(*[_t(a, t32) for a in (x, t, m, b)])
+    args1 = [_j(a, f32) for a in (x, t, m, b)]
+    for want in (j_ising(*args1, interpret=True), j_ising_ref(*args1),
+                 j_logits_op(*args1, use_pallas=False)):
+        assert _rel(got1, want) <= 1e-5
+    assert _rel(conditional_logits_op(*[_t(a, t32) for a in (x, t, m, b)]),
+                got1) == 0.0
+
+
+@pytest.mark.parametrize("n,d", [(1001, 130), (300, 37), (513, 128)])
+def test_gram_ref_matches_pallas_interpret_and_reference(n, d):
+    s = np.random.RandomState(n).randn(n, d)
+    got = tgram.gram_ref(_t(s, torch.float32))
+    assert got.shape == (d, d) and got.dtype == torch.float32
+    for want in (j_gram(_j(s, jnp.float32), interpret=True),
+                 j_gram_ref(_j(s, jnp.float32))):
+        assert _rel(got, want) <= 1e-5     # float32 sums in another order
+    # float64 samples are summed in float32, as the reference casts them
+    assert tgram.gram_ref(_t(s)).dtype == torch.float32
+    assert _rel(tgram.gram_ref(_t(s)), j_gram_ref(_j(s))) <= 1e-5
+
+
+def test_logits_and_gram_wrappers_on_cpu_take_the_plain_version():
+    rng = np.random.RandomState(0)
+    F, th = _t(rng.randn(2, 30, 7)), _t(rng.randn(2, 7, 7))
+    A, bias = _t((rng.rand(7, 7) < .5).astype(float)), _t(rng.randn(2, 7))
+    l0, g0 = kmod.cl_logits.launches, tgram.gram.launches
+    assert torch.equal(kmod.cl_logits(F, th, A, bias),
+                       cl_logits_ref(F, th, A, bias))
+    assert torch.equal(kmod.ising_cl_logits(F[0], th[0], A, bias[0]),
+                       ising_cl_logits_ref(F[0], th[0], A, bias[0]))
+    assert torch.equal(tgram.gram(F[0]), tgram.gram_ref(F[0]))
+    assert torch.equal(tgram.gram_op(F[0]), tgram.gram_ref(F[0]))
+    assert (kmod.cl_logits.launches, tgram.gram.launches) == (l0, g0)
