@@ -9,8 +9,10 @@ Phases:
   2. print the card's name and power limit (nvidia-smi);
   3. hold every kernel against its plain PyTorch version on the card: all
      three epilogue kinds, weighted and unweighted, shapes that do not divide
-     the tiles, and the exact bucket and score shapes of phases 4 and 5; time
-     kernel, plain version and a library yardstick with CUDA events;
+     the tiles, and the exact bucket and score shapes of phases 4 and 5, and
+     that a second Newton call is bitwise equal; time kernel, plain version
+     and a library yardstick with CUDA events, and the Newton kernel's
+     device time under torch.profiler;
   4. paper scale (Fig. 4 of the paper at p = 100, n = 4000): Ising on a
      Euclidean and a scale-free graph, Potts (q = 3) on the Euclidean graph;
      kernel fits against plain fits, and the diagonal combiner's error to the
@@ -37,7 +39,8 @@ Phases:
 
 Samples are drawn here, seeded, by a chromatic Gibbs sweep written with
 neighbour lists in torch on the card; true parameters come from a seeded
-torch.Generator. Prints one {"kernels": [...]} line and, last, one
+torch.Generator. Prints the redesigned kernels' first-version times beside
+this run's, one {"kernels": [...]} line and, last, one
 {"ok": true, "device": {...}} line; exits non-zero on any failure, and
 without a result when there is no CUDA device or no repro_torch beside it.
 """
@@ -73,6 +76,17 @@ GATE_SERVE = 1e-1
 CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
               ("H100 NVL", 3.9e12, 60e12, 835e12),
               ("H100", 3.35e12, 67e12, 989e12))
+
+#: the first version of each redesigned kernel, by the tag its timing line
+#: prints (NVIDIA H100 80GB HBM3 at 700 W; PERF.md kernel table)
+EARLIER_MS = {
+    "newton field_ising bucket d=5 k=4096 n=16384": 3.0412,
+    "newton euclidean_ising bucket d=17 k=69 n=4000 weighted=False": 0.1048,
+    "newton scalefree_ising bucket d=65 k=1 n=4000 weighted=False": 0.2514,
+    "newton euclidean_potts3 bucket d=17 k=69 n=4000 weighted=False": 0.2309,
+    "swa prefill b=4 s=2048": 1.0146,
+    "swa window b=1 s=8192 w=4096": 2.6635,
+}
 
 PAPER_COMBINERS = ("uniform", "diagonal", "optimal", "max")
 FIELD_COMBINERS = ("diagonal", "max")
@@ -123,6 +137,25 @@ class Timer:
         p2 = self(plain, reps)
         lib = self(library, reps) if library is not None else None
         return (k1 + k2) / 2, (p1 + p2) / 2, lib
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device time per call of ``fn``: the summed durations of the
+    kernels it launched, under torch.profiler. Unlike back-to-back CUDA
+    events it leaves out the host's time between launches, which sets the
+    pace of a call whose kernels take a few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 # ---------------------------------------------------------------- sampling
@@ -305,13 +338,16 @@ def main() -> int:
 
     def check_newton(tag, kind, Zb, base, xi, W, sw):
         g1, K1 = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
+        g2, K2 = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
         g0, K0 = nmod.bucket_newton_stats_ref(kind, Zb, base, xi, W, sw)
         torch.cuda.synchronize()
         eg, eK = rel_err(g1, g0), rel_err(K1, K0)
+        same = torch.equal(g1, g2) and torch.equal(K1, K2)
         errs["newton"] = max(errs["newton"], abs_err(g1, g0),
                              abs_err(K1, K0))
-        gate(eg <= GATE_STATS and eK <= GATE_STATS,
-             f"newton {tag}: rel g {eg:.2e} K {eK:.2e}")
+        gate(eg <= GATE_STATS and eK <= GATE_STATS and same,
+             f"newton {tag}: rel g {eg:.2e} K {eK:.2e}; a second call "
+             f"bitwise equal {same}")
 
     def check_score(tag, kind, F, th, mask, bias):
         e1, r1, S1 = kmod.cl_score_channels(F, th, mask, bias, kind=kind)
@@ -367,6 +403,7 @@ def main() -> int:
 
     # the exact shapes of phases 4 and 5
     timing = []
+    timed_ms = {}
 
     def bucket_inputs(g, fam, X, weighted):
         sess = A.Plan(graph=g, family=fam).session()
@@ -426,11 +463,15 @@ def main() -> int:
             lambda: nmod.bucket_newton_stats(kind, *args),
             lambda: torch.bmm(Z1, Z1t), reps)
         bms, by = bound(*newton_cost(*args))
+        dms = device_ms(torch, lambda: nmod.bucket_newton_stats(kind, *args),
+                        reps)
         row = dict(op="newton", tag=tag, ms=kms, plain_ms=pms,
                    library_ms=lms, bound_ms=bms, bound_by=by)
         timing.append(row)
-        print(f"  time newton {tag}: kernel {kms:.4f} ms, plain {pms:.4f} "
-              f"ms, bmm {lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        timed_ms[f"newton {tag}"] = (kms, dms)
+        print(f"  time newton {tag}: kernel {kms:.4f} ms (device {dms:.4f} "
+              f"ms), plain {pms:.4f} ms, bmm {lms:.4f} ms, bound {bms:.4f} ms"
+              f" ({by})", flush=True)
         return row
 
     def time_score(tag, kind, F, th, mask, bias, reps):
@@ -635,13 +676,15 @@ def main() -> int:
 
     def check_swa(tag, q, k, v, window):
         got = smod.swa_attention(q, k, v, window=window)
+        same = torch.equal(got, smod.swa_attention(q, k, v, window=window))
         want = smod.swa_attention_ref(q.float(), k.float(), v.float(),
                                       window=window)
         torch.cuda.synchronize()
         e = rel_err(got, want)
         errs["swa"] = max(errs["swa"], abs_err(got, want))
-        gate(e <= GATE_SWA[str(q.dtype).split(".")[-1]],
-             f"swa {tag} {str(q.dtype).split('.')[-1]}: rel {e:.2e}")
+        gate(e <= GATE_SWA[str(q.dtype).split(".")[-1]] and same,
+             f"swa {tag} {str(q.dtype).split('.')[-1]}: rel {e:.2e}; a "
+             f"second call bitwise equal {same}")
         del got, want
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -678,6 +721,7 @@ def main() -> int:
         bms, by = bound_at(nbytes, nflop, bf16_flops)
         row = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                    bound_by=by)
+        timed_ms[f"swa {tag}"] = (kms, None)
         print(f"  time swa {tag}: kernel {kms:.4f} ms, plain {pms:.4f} ms, "
               f"sdpa {lms:.4f} ms, bound {bms:.4f} ms ({by}; "
               f"{nflop / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
@@ -970,6 +1014,15 @@ def main() -> int:
              launches=launches["gram"], max_abs_err=errs["gram"],
              **main_rows["gram"]),
     ]
+    print("redesigned kernels, the first version's time beside this run's "
+          "(first versions on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md "
+          "kernel table):")
+    for tag, before in EARLIER_MS.items():
+        now, dev_now = timed_ms.get(tag, (None, None))
+        print(f"  {tag}: {before:.4f} ms -> "
+              + ("not timed" if now is None else
+                 f"{now:.4f} ms ({before / now:.2f}x)")
+              + ("" if dev_now is None else f"; device {dev_now:.4f} ms"))
     if failures:
         print(f"chip_smoke: {len(failures)} gate(s) failed:",
               file=sys.stderr)

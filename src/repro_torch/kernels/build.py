@@ -32,10 +32,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 #: ctypes signatures of every C entry point, by library
 SIGNATURES = {
     "newton": {
-        "repro_newton_smem_bytes": ([_I, _I, _I], _L),
+        "repro_newton_smem_bytes": ([_I, _I, _I, _I], _L),
+        "repro_newton_partial_floats": ([_I, _I, _I, _I, _I, _I], _L),
         "repro_cuda_error_string": ([_I], ctypes.c_char_p),
-        "repro_newton_stats": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I, _I, _I, _P], _I),
+        "repro_newton_stats": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "score": {
         "repro_score_max_channels": ([], _I),

@@ -22,19 +22,23 @@ epilogue, in the coordinate-major flat layout ``[(d0,c0), (d0,c1), ...]``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..build import LIBRARIES, check
 from .epilogues import KIND_CODES, require_epilogue
 
-#: samples per shared-memory tile of the kernel, by design width
-_TILE_SAMPLES = ((64, 128), (256, 64))    # (max C*d, tile); else 32
-#: blocks the grid should reach (two per SM of a 132-SM H100)
-_TARGET_BLOCKS = 264
-#: fewest samples a split should hold
-_MIN_SPLIT = 512
+#: the narrow (register-streaming) regime takes C == 1 buckets up to this
+#: width; mirrors kNarrowMaxD of csrc/newton.cu, which refuses a launch
+#: whose planned regime is not its own
+NARROW_MAX_D = 8
+#: blocks a bucket's grid should reach: four per SM of a 132-SM H100, so
+#: the blocks of a short bucket hide each other's barriers and latencies
+_TARGET_BLOCKS = 4 * 132
+#: fewest samples a split holds when a bucket is cut into splits
+_MIN_SPLIT = 16
 #: largest dynamic shared memory a block may use on sm_90
 _MAX_SMEM = 232448
 
@@ -98,18 +102,46 @@ def bucket_newton_stats_ref(kind: str, Zb, base, xi, W, sw=None):
     return g, K
 
 
-def newton_launch_shape(k: int, C: int, d: int, n: int):
-    """(sample tile, splits) of the kernel's grid for one bucket shape.
+class NewtonLaunch(NamedTuple):
+    """How the kernel cuts one bucket: its regime and its sample splits."""
+    regime: str     # "narrow" (register streaming) or "wide" (tiled product)
+    splits: int     # sample splits per node
+    chunk: int      # samples per split (a multiple of 8 when splits > 1)
 
-    Depends on the shape alone, so a shape always sums in the same order.
+
+def newton_launch_shape(k: int, C: int, d: int, n: int) -> NewtonLaunch:
+    """Regime and sample splits of the kernel's grid for one bucket shape.
+
+    A bucket of few nodes is cut into splits so that ``k * splits`` reaches
+    four blocks per SM of the card, each split holding at least
+    ``_MIN_SPLIT`` samples (split starts stay 16-byte aligned for the vector
+    loads). Depends on the shape alone, so a shape always sums in the same
+    order.
     """
-    tn = 32
-    for width, tile in _TILE_SAMPLES:
-        if C * d <= width:
-            tn = tile
-            break
-    splits = max(1, min(-(-_TARGET_BLOCKS // k), -(-n // _MIN_SPLIT)))
-    return tn, splits
+    regime = "narrow" if C == 1 and d <= NARROW_MAX_D else "wide"
+    want = -(-_TARGET_BLOCKS // k)
+    if want <= 1 or n <= _MIN_SPLIT:
+        return NewtonLaunch(regime, 1, n)
+    chunk = max(_MIN_SPLIT, (n // want) // 8 * 8)
+    splits = -(-n // chunk)
+    return NewtonLaunch(regime, splits, chunk if splits > 1 else n)
+
+
+@functools.lru_cache(maxsize=256)
+def _launch_plan(k: int, C: int, d: int, n: int, code: int, weighted: bool):
+    """(launch shape, floats of split scratch) of one bucket shape; raises
+    for a width whose tiles do not fit a block's shared memory."""
+    lib = LIBRARIES.get("newton")
+    launch = newton_launch_shape(k, C, d, n)
+    smem = lib.repro_newton_smem_bytes(C, d, code, int(weighted))
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"bucket of width d*C = {d * C} needs {smem} bytes of shared "
+            f"memory per block, more than the {_MAX_SMEM} an sm_90 block can "
+            f"use")
+    return launch, lib.repro_newton_partial_floats(k, C, d, code,
+                                                   int(weighted),
+                                                   launch.splits)
 
 
 def bucket_newton_stats(kind: str, Zb, base, xi, W, sw=None):
@@ -148,24 +180,20 @@ def bucket_newton_stats(kind: str, Zb, base, xi, W, sw=None):
     W32 = W.to(torch.float32).contiguous()
     sw_c = None if sw is None else sw.to(Zb.dtype).contiguous()
 
-    lib = LIBRARIES.get("newton")
-    tn, splits = newton_launch_shape(k, C, d, n)
-    smem = lib.repro_newton_smem_bytes(C, d, tn)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"bucket of width d*C = {dC} needs {smem} bytes of shared memory "
-            f"per block, more than the {_MAX_SMEM} an sm_90 block can use")
-    E = dC + dC * (dC + 1) // 2
+    code = _DTYPE_CODES[Zb.dtype]
+    launch, n_partial = _launch_plan(k, C, d, n, code, sw is not None)
     dev = Zb.device
-    partial = torch.empty(splits * k * E, dtype=torch.float32, device=dev)
+    partial = (torch.empty(n_partial, dtype=torch.float32, device=dev)
+               if n_partial else None)
     g = torch.empty((k, dC), dtype=torch.float32, device=dev)
     K = torch.empty((k, dC, dC), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.repro_newton_stats(
-        KIND_CODES[kind], _DTYPE_CODES[Zb.dtype], int(sw is not None),
-        Zb.data_ptr(), base.data_ptr(), xi.data_ptr(), W32.data_ptr(),
-        None if sw_c is None else sw_c.data_ptr(), partial.data_ptr(),
-        g.data_ptr(), K.data_ptr(), k, C, d, n, splits, tn, stream)
+    err = LIBRARIES.get("newton").repro_newton_stats(
+        KIND_CODES[kind], code, Zb.data_ptr(), base.data_ptr(), xi.data_ptr(),
+        W32.data_ptr(), None if sw_c is None else sw_c.data_ptr(),
+        None if partial is None else partial.data_ptr(), g.data_ptr(),
+        K.data_ptr(), k, C, d, n, launch.splits, launch.chunk,
+        int(launch.regime == "narrow"), stream)
     check(err, "bucket_newton_stats kernel")
     bucket_newton_stats.launches += 1
     return g, K

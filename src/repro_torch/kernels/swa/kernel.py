@@ -15,6 +15,9 @@ from ..build import LIBRARIES, check
 from .ref import swa_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: cudaErrorNotSupported: the bfloat16 kernel at d = 64 and 128 reads K and V
+#: by TMA only, and no tensor map could be made for them
+_NO_TENSOR_MAP = 801
 
 
 def swa_attention(q, k, v, *, window: int = 0):
@@ -67,6 +70,11 @@ def swa_attention(q, k, v, *, window: int = 0):
         _DTYPE_CODES[q.dtype], d, b, s, h, kh, int(window), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
         torch.cuda.current_stream(q.device).cuda_stream)
+    if err == _NO_TENSOR_MAP and q.dtype == torch.bfloat16 and d in (64, 128):
+        raise RuntimeError(f"swa_attention: no TMA tensor map describes k "
+                           f"(strides {k.stride()}) and v (strides "
+                           f"{v.stride()}), or the driver lacks "
+                           f"cuTensorMapEncodeTiled")
     check(err, "swa_attention kernel")
     swa_attention.launches += 1
     return o

@@ -61,6 +61,66 @@ def test_newton_kernel_matches_plain(dev, kind, d, weighted):
     assert all(_rel(g, w) <= 1e-4 for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize("kind,C,d,k,n", [
+    ("ising", 1, 65, 1, 4000),     # one node: the many-split wide path
+    ("potts", 2, 65, 3, 1001),     # d*C = 130
+    ("ising", 1, 8, 5, 4001),      # widest narrow bucket; n divides no tile
+    ("ising", 1, 9, 5, 4001),      # narrowest wide bucket
+    ("gaussian", 1, 84, 2, 1001),  # 252 tiles: one tile group
+    ("gaussian", 1, 85, 2, 1001),  # 275 tiles: two tile groups
+    ("potts", 3, 100, 1, 500),     # d*C = 300, the old width limit
+])
+def test_newton_kernel_regimes_match_plain_and_repeat(dev, kind, C, d, k, n,
+                                                      dtype, weighted):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d * C + n)
+    xi = torch.randint(0, C + 1, (k, n), generator=gen, device=dev).float()
+    if kind == "ising":
+        xi = 2.0 * (xi > 0).float() - 1.0
+    Zb = torch.randn((k, C, d, n), generator=gen, device=dev).to(dtype)
+    base = (0.1 * torch.randn((k, C, n), generator=gen, device=dev)).to(dtype)
+    W = 0.1 * torch.randn((k, d * C), generator=gen, device=dev) / d ** 0.5
+    sw = ((torch.rand((k, n), generator=gen, device=dev) < .7).to(dtype)
+          if weighted else None)
+    xi = xi.to(dtype)
+    got = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
+    again = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
+    want = nmod.bucket_newton_stats_ref(kind, Zb, base, xi, W, sw)
+    # partials are summed in a fixed order: bitwise equal on a second call
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    # float32 sums in another order (against float64 sums for a float64
+    # design)
+    assert all(g.dtype == torch.float32 for g in got)
+    assert all(_rel(g, w) <= 1e-4 for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("C,d", [(1, 8), (1, 9), (2, 4)])
+def test_newton_library_refuses_the_other_regime(dev, C, d):
+    # the wrapper plans the regime; the library launches only the regime it
+    # picks itself, so the two copies of the rule cannot drift apart
+    from repro_torch.kernels.build import LIBRARIES
+    k, n = 2, 16   # one split: no partials
+    Zb = torch.randn((k, C, d, n), device=dev)
+    base, xi = torch.zeros((k, C, n), device=dev), torch.ones((k, n), device=dev)
+    W = torch.zeros((k, d * C), device=dev)
+    g = torch.empty((k, d * C), device=dev)
+    K = torch.empty((k, d * C, d * C), device=dev)
+    planned = nmod.newton_launch_shape(k, C, d, n)
+    assert planned.splits == 1
+    kind = nmod.KIND_CODES["potts" if C > 1 else "ising"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for narrow, want in ((planned.regime == "narrow", 0),
+                         (planned.regime != "narrow", 1)):
+        err = LIBRARIES.get("newton").repro_newton_stats(
+            kind, 0, Zb.data_ptr(), base.data_ptr(), xi.data_ptr(),
+            W.data_ptr(), None, None, g.data_ptr(), K.data_ptr(), k, C, d, n,
+            1, n, int(narrow), stream)
+        assert err == want   # 1: cudaErrorInvalidValue
+
+
 @pytest.mark.parametrize("n,p", [(1001, 37), (333, 130)])
 @pytest.mark.parametrize("kind", sorted(KINDS))
 def test_score_kernel_matches_plain(dev, kind, n, p):
@@ -134,6 +194,24 @@ def test_swa_kernel_matches_plain(dev, dtype, s, d, h, kh, window):
     assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("s,h,kh,window", [
+    (2048, 24, 8, 0),      # the prefill shape's heads and width
+    (2050, 24, 8, 0),      # ragged s
+    (300, 6, 2, 63),       # windows across a 64-key tile edge
+    (300, 6, 2, 64),
+    (300, 6, 2, 65),
+    (2050, 24, 8, 1000),
+])
+def test_swa_bf16_pipeline_matches_plain_and_repeats(dev, s, h, kh, window):
+    q, k, v = _qkv(dev, 1, s, h, kh, 128, torch.bfloat16, seed=s + window)
+    got = smod.swa_attention(q, k, v, window=window)
+    # no atomics: a second call is bitwise equal
+    assert torch.equal(got, smod.swa_attention(q, k, v, window=window))
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                  window=window)
+    assert _rel(got, want) <= 1e-2
+
+
 def test_swa_kernel_reads_strided_views(dev):
     # q, k, v as slices of one fused projection: strided, not contiguous
     gen = torch.Generator(device=dev)
@@ -143,6 +221,28 @@ def test_swa_kernel_reads_strided_views(dev):
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
     got = smod.swa_attention(q, k, v, window=50)
     want = smod.swa_attention_ref(q.float(), k.float(), v.float(), window=50)
+    assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("k_order,v_order", [("bshd", "bshd"),
+                                             ("bhsd", "bhsd"),
+                                             ("bshd", "bhsd")])
+def test_swa_bf16_tma_maps_both_stride_orders(dev, d, k_order, v_order):
+    # the wgmma kernel reads K and V only through TMA maps: heads inside the
+    # sequence (bshd), outside it (a transposed (b, h, s, d) tensor) and one
+    # of each all map (a failed map raises: there is no other bf16 kernel at
+    # these widths)
+    b, s, h, kh = 2, 200, 6, 2
+    q, k, v = _qkv(dev, b, s, h, kh, d, torch.bfloat16, seed=d)
+
+    def lay(t, order):
+        return t if order == "bshd" else \
+            t.transpose(1, 2).contiguous().transpose(1, 2)
+    k, v = lay(k, k_order), lay(v, v_order)
+    got = smod.swa_attention(q, k, v, window=70)
+    assert torch.equal(got, smod.swa_attention(q, k, v, window=70))
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float(), window=70)
     assert _rel(got, want) <= 1e-2
 
 

@@ -188,15 +188,41 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version(kind):
 
 
 def test_launch_shapes_cover_the_card_and_divide_nothing_evenly():
-    # a bucket of a few nodes still spreads over the SMs; a wide bucket
-    # needs no splits; every shape has at least one sample per split
-    tn, splits = nmod.newton_launch_shape(k=3, C=1, d=5, n=4000)
-    assert 3 * splits >= 8 and tn == 128
-    assert nmod.newton_launch_shape(k=4096, C=1, d=5, n=16384)[1] == 1
-    assert nmod.newton_launch_shape(k=1, C=2, d=65, n=100)[1] == 1
+    # a bucket of a few nodes still spreads over the card's 132 SMs (four
+    # blocks per SM where the samples allow), even one node; a bucket of
+    # many nodes needs no splits; a bucket too short to cover the card gets
+    # splits of the fewest samples; the regime follows the width: narrow
+    # for C = 1 and d <= 8, wide otherwise
+    L = nmod.newton_launch_shape(k=3, C=1, d=5, n=4000)
+    assert 3 * L.splits >= 132 and L.regime == "narrow"
+    field = nmod.newton_launch_shape(k=4096, C=1, d=5, n=16384)
+    assert field == ("narrow", 1, 16384)
+    sf = nmod.newton_launch_shape(k=1, C=1, d=65, n=4000)
+    assert sf.splits >= 132 and sf.regime == "wide"
+    assert nmod.newton_launch_shape(k=1, C=2, d=65, n=100) == ("wide", 7, 16)
+    assert nmod.newton_launch_shape(k=69, C=2, d=17, n=4000) == ("wide", 9,
+                                                                 496)
+    assert nmod.newton_launch_shape(k=5, C=1, d=8, n=100).regime == "narrow"
+    assert nmod.newton_launch_shape(k=5, C=1, d=9, n=100).regime == "wide"
+    assert nmod.newton_launch_shape(k=5, C=2, d=2, n=100).regime == "wide"
     splits, chunk = kmod.score_launch_shape(C=1, n=4000, p=100)
     assert splits > 1 and (splits - 1) * chunk < 4000 <= splits * chunk
     assert kmod.score_launch_shape(C=1, n=16384, p=4096) == (1, 16384)
+
+
+@pytest.mark.parametrize("k,C,d,n", [(1, 1, 65, 4000), (1, 1, 5, 4001),
+                                     (3, 2, 17, 1001), (69, 1, 17, 4000),
+                                     (2, 1, 8, 17), (1, 3, 100, 9),
+                                     (131, 1, 2, 1000), (133, 1, 2, 1000)])
+def test_newton_splits_hold_samples_and_keep_vector_alignment(k, C, d, n):
+    # every split holds at least one sample, the splits tile [0, n) in
+    # order, and split starts are multiples of 8 samples (16-byte vector
+    # loads of every input type) whenever there is more than one
+    L = nmod.newton_launch_shape(k=k, C=C, d=d, n=n)
+    assert (L.splits - 1) * L.chunk < n <= L.splits * L.chunk
+    assert L.splits == 1 or (L.chunk % 8 == 0 and L.chunk >= 16)
+    assert k * L.splits >= 4 * 132 or L.chunk == 16 or L.splits == 1
+    assert L == nmod.newton_launch_shape(k=k, C=C, d=d, n=n)
 
 
 @pytest.mark.parametrize("C,p", [(1, 37), (1, 130), (2, 37), (3, 130)])
