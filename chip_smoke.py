@@ -11,24 +11,27 @@ Phases:
      three epilogue kinds, weighted and unweighted, shapes that do not divide
      the tiles, and the exact bucket and score shapes of phases 4 and 5, and
      that a second Newton call is bitwise equal; time kernel, plain version
-     and a library yardstick with CUDA events, and the Newton kernel's
-     device time under torch.profiler;
+     and a library yardstick with CUDA events, and the Newton and score
+     kernels' device time under torch.profiler (back-to-back events read
+     the host's pace where a call's kernels take a few microseconds);
   4. paper scale (Fig. 4 of the paper at p = 100, n = 4000): Ising on a
      Euclidean and a scale-free graph, Potts (q = 3) on the Euclidean graph;
      kernel fits against plain fits, and the diagonal combiner's error to the
      truth shrinking from n = 1000 to n = 4000;
   5. deployment scale: a 64 x 64 sensor grid (p = 4096) at n = 16384, cold
-     and warm fit wall seconds, and the device's busy share of a profiled
-     warm fit;
+     and warm fit wall seconds (the median and range of five more warm
+     fits), and the device's busy share of a profiled warm fit;
   6. launch counts: the Newton kernel ran at least once per bucket per Newton
      iteration, the score kernel once per fit, and no plain version saw a
      CUDA tensor during the kernel-path fits;
   7. the flash-attention, masked-logits and Gram kernels against their plain
      versions on the card: ragged shapes (s, n, p, d that divide no tile),
      every head grouping and window kind, both dtypes of the attention
-     kernel, and the shapes of the serving path and of kernels_bench; kernel,
-     plain and library times with CUDA events; conditional_logits_op and
-     gram_op driven once through the kernels;
+     kernel, the masked logits for C = 1 .. 5 and on a dense mask, the Gram
+     kernel's bitwise symmetry, second calls bitwise equal, and the shapes of
+     the serving path and of kernels_bench; kernel, plain and library times
+     with CUDA events (the masked logits also beside torch.sparse.mm);
+     conditional_logits_op and gram_op driven once through the kernels;
   8. Llama-3.2-3B at full width and depth (weights drawn on the card from a
      seeded generator): generate with b = 4, a 2048-token prompt and 32 new
      tokens, then a sliding-window request (window 4096, b = 1, an
@@ -47,6 +50,7 @@ without a result when there is no CUDA device or no repro_torch beside it.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -86,6 +90,9 @@ EARLIER_MS = {
     "newton euclidean_potts3 bucket d=17 k=69 n=4000 weighted=False": 0.2309,
     "swa prefill b=4 s=2048": 1.0146,
     "swa window b=1 s=8192 w=4096": 2.6635,
+    "score field_ising n=16384 p=4096 C=1": 54.9393,
+    "cl_logits field_ising n=16384 p=4096": 29.3808,
+    "gram kernels_bench n=16384 d=512": 0.5524,
 }
 
 PAPER_COMBINERS = ("uniform", "diagonal", "optimal", "max")
@@ -153,9 +160,10 @@ def device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    # nan, not 0, when the profiler returned no kernel events
+    return sum(us) / 1e3 / reps if us else float("nan")
 
 
 # ---------------------------------------------------------------- sampling
@@ -490,12 +498,16 @@ def main() -> int:
         nnz = int(mask.count_nonzero())
         bms, by = bound(*score_cost(C, n, p, nnz))
         ems, eby = bound(*edge_score_cost(C, n, p, nnz))
+        dms = device_ms(torch, lambda: kmod.cl_score_channels(
+            F, th, mask, bias, kind=kind), reps)
         row = dict(op="score", tag=tag, ms=kms, plain_ms=pms,
                    library_ms=lms, bound_ms=bms, bound_by=by)
         timing.append(row)
-        print(f"  time score {tag}: kernel {kms:.4f} ms, plain {pms:.4f} ms,"
-              f" 2x matmul {lms:.4f} ms, bound {bms:.4f} ms ({by}); the fit "
-              f"path's edge-only bound {ems:.4f} ms ({eby})", flush=True)
+        timed_ms[f"score {tag}"] = (kms, dms)
+        print(f"  time score {tag}: kernel {kms:.4f} ms (device {dms:.4f} "
+              f"ms), plain {pms:.4f} ms, 2x matmul {lms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}); the fit path's edge-only bound "
+              f"{ems:.4f} ms ({eby})", flush=True)
         return row
 
     main_rows = {}
@@ -621,9 +633,20 @@ def main() -> int:
     res_cold, cold = main_path(sess, X_field[:16384], "score_c1")
     peak = torch.cuda.max_memory_allocated() / 2**30
     res_warm, warm = main_path(sess, X_field[16384:], "score_c1")
+    # the host's pace swings from fit to fit: five more warm fits, on the
+    # two halves in turn, give a median and a range
+    warms = []
+    for i in range(5):
+        t0 = time.perf_counter()
+        sess.fit(X_field[16384:] if i % 2 == 0 else X_field[:16384])
+        torch.cuda.synchronize()
+        warms.append(time.perf_counter() - t0)
     print(f"  field fit wall: cold {cold:.3f} s, warm {warm:.3f} s "
           f"(warm new_compiles {res_warm.new_compiles}); peak device memory "
           f"of the cold fit {peak:.2f} GiB")
+    print(f"  field warm fit over five more fits: median "
+          f"{statistics.median(warms):.4f} s, range {min(warms):.4f}-"
+          f"{max(warms):.4f} s", flush=True)
     res_plain = sess.fit(X_field[16384:], use_kernel=False)
     dth = max(float(np.max(np.abs(res_warm.combined[c]
                                   - res_plain.combined[c])))
@@ -746,11 +769,13 @@ def main() -> int:
 
     def check_logits(tag, F, th, mask, bias):
         got = kmod.cl_logits(F, th, mask, bias)
+        same = torch.equal(got, kmod.cl_logits(F, th, mask, bias))
         want = kmod.cl_logits_ref(F, th, mask, bias)
         torch.cuda.synchronize()
         e = rel_err(got, want)
         errs["cl_logits"] = max(errs["cl_logits"], abs_err(got, want))
-        gate(e <= GATE_ELEM, f"cl_logits {tag}: rel {e:.2e}")
+        gate(e <= GATE_ELEM and same, f"cl_logits {tag}: rel {e:.2e}; a "
+             f"second call bitwise equal {same}")
 
     def time_logits(tag, F, th, mask, bias, reps):
         C, n, p = F.shape
@@ -760,16 +785,27 @@ def main() -> int:
             lambda: kmod.cl_logits_ref(F, th, mask, bias),
             lambda: kmod.cl_logits(F, th, mask, bias),
             lambda: torch.baddbmm(b3, F, B), reps)
+        # a second yardstick: a CSR of (Theta*A)^T times F^T per channel
+        # (eta^T without the bias), converted outside the timed region
+        csr = [B[c].T.contiguous().to_sparse_csr() for c in range(C)]
+        Ft = [F[c].T.contiguous() for c in range(C)]
+        sms = timer(lambda: [torch.sparse.mm(csr[c], Ft[c])
+                             for c in range(C)], reps)
+        del csr, Ft
         nnz = int(mask.count_nonzero())
         # F read, eta written, A and b read, Theta read at A's nonzeros
         bms, by = bound_at(4 * (2 * C * n * p + p * p + C * p + C * nnz),
                            2 * C * n * nnz, flops)
-        print(f"  time cl_logits {tag}: kernel {kms:.4f} ms, plain "
-              f"{pms:.4f} ms, baddbmm {lms:.4f} ms, bound {bms:.4f} ms "
-              f"({by}; the product counted by the {nnz} nonzeros of A)",
-              flush=True)
+        dms = device_ms(torch, lambda: kmod.cl_logits(F, th, mask, bias),
+                        reps)
+        timed_ms[f"cl_logits {tag}"] = (kms, dms)
+        print(f"  time cl_logits {tag}: kernel {kms:.4f} ms (device "
+              f"{dms:.4f} ms), plain "
+              f"{pms:.4f} ms, baddbmm {lms:.4f} ms, sparse.mm {sms:.4f} ms, "
+              f"bound {bms:.4f} ms ({by}; the product counted by the {nnz} "
+              f"nonzeros of A)", flush=True)
         return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
-                    bound_by=by)
+                    bound_by=by, sparse_mm_ms=sms)
 
     def logits_inputs(C, n, p, density):
         if C == 1:
@@ -787,9 +823,28 @@ def main() -> int:
         for p in (37, 130):
             check_logits(f"C={C} n=1001 p={p}", *logits_inputs(C, 1001, p,
                                                                .2))
+    for C in (3, 5):
+        check_logits(f"C={C} n=333 p=130", *logits_inputs(C, 333, 130, .2))
+    sync_args = logits_inputs(2, 333, 130, .2)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kmod.cl_logits(*sync_args)
+        kmod.cl_score_channels(*sync_args, kind="potts")
+        synced = None
+    except RuntimeError as exc:
+        synced = str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    gate(synced is None, f"cl_logits and cl_score_channels wrappers make no "
+         f"host synchronisation (sync debug mode 'error'): {synced or 'none'}")
+    del sync_args
     bench_logits = logits_inputs(1, 4096, 256, .1)   # kernels_bench, full
     check_logits("kernels_bench n=4096 p=256", *bench_logits)
     time_logits("kernels_bench n=4096 p=256", *bench_logits, 20)
+    dense = logits_inputs(1, 4096, 1024, 1.0)         # every tile dense
+    check_logits("dense n=4096 p=1024", *dense)
+    time_logits("dense n=4096 p=1024", *dense, 10)
+    del dense
     name, g, fam, _, th, X = paper[2]
     pf = family_kernel_inputs(A.Plan(graph=g, family=fam).family_instance, g,
                               th.to(dev, torch.float32), X)
@@ -805,13 +860,17 @@ def main() -> int:
 
     def check_gram(tag, S):
         got, want = gmod.gram(S), gmod.gram_ref(S)
+        same = torch.equal(got, gmod.gram(S))
+        sym = torch.equal(got, got.T)
         torch.cuda.synchronize()
         e = rel_err(got, want)
         errs["gram"] = max(errs["gram"], abs_err(got, want))
-        gate(e <= GATE_STATS, f"gram {tag}: rel {e:.2e} (long sums over "
-             f"samples)")
+        gate(e <= GATE_STATS and same and sym,
+             f"gram {tag}: rel {e:.2e} (long sums over samples); a second "
+             f"call bitwise equal {same}; bitwise symmetric {sym}")
 
-    check_gram("n=1001 d=130", randn((1001, 130)))
+    for n, d in ((1001, 130), (50, 7), (16384, 513), (5, 512)):
+        check_gram(f"n={n} d={d}", randn((n, d)))
     S_bench = randn((16384, 512))                     # kernels_bench, full
     check_gram("kernels_bench n=16384 d=512", S_bench)
     n, d = S_bench.shape
@@ -824,6 +883,7 @@ def main() -> int:
     bms, by = bound_at(4 * (n * d + d * d), n * d * (d + 1), flops)
     main_rows["gram"] = dict(ms=kms, plain_ms=pms, library_ms=lms,
                              bound_ms=bms, bound_by=by)
+    timed_ms[f"gram kernels_bench n={n} d={d}"] = (kms, None)
     print(f"  time gram kernels_bench n={n} d={d}: kernel {kms:.4f} ms, "
           f"plain {pms:.4f} ms, addmm {lms:.4f} ms, bound {bms:.4f} ms "
           f"({by})", flush=True)

@@ -10,28 +10,41 @@
 //   r[:, s, i]   = family residual at (F[:, s, i], eta[:, s, i])   (all C at once)
 //   S[c, e, i, j] = sum_s r[c, s, i] F[e, s, j] / n
 //
-// What bounds it on an H100: two dense float32 products of 2*C*n*p*p and
-// 2*C*C*n*p*p operations, far above the card's operations-per-byte ridge at
-// the sizes the fit path uses, so the bound is the float32 FMA rate.
+// What bounds it on an H100: the masked product needs only the nonzeros of A
+// (2*C*n*nnz operations; on a sensor grid a column of A holds at most 4 of p
+// rows), so it is bound by the bytes of F in, eta (and r) out and A once. The
+// Gram S is a dense 2*C*C*n*p*p product, bound by the FP32 FMA rate.
 //
 // Design: the TPU kernel kept a (bm, p) feature strip in VMEM so one pass
 // gave eta, r and S. At p in the thousands that strip does not fit in a
-// block's 227 KB of shared memory, so the work is two kernels:
-//  (a) a tiled masked product over (sample tile, node tile) output blocks.
-//      Theta*A is formed on the tile in shared memory and never written to
-//      device memory. All C channels of a tile live in one block, so the
-//      epilogue sees every channel of a node (the Potts softmax needs them).
-//      It adds the bias, applies the residual and writes eta and r.
-//  (b) a tiled product S[c,e] = r_c^T F_e reducing over samples. Samples are
-//      split across blocks when the output has few tiles (at p = 100 it is a
-//      handful), and a third small kernel sums the splits in a fixed order,
-//      so the result is deterministic without float atomics. Its body lives
-//      in gram_body.cuh, which gram.cu shares.
-// cl_logits is (a) alone with the epilogue writing eta = F (Theta*A) + b and
-// nothing else: a dense float32 product of 2*C*n*p*p operations, bound by the
-// FMA rate at the sizes above.
-// Both use plain float32 FMA, not TF32: the float32 parity gates need it.
-// Ragged edges of n and p are masked in the loads and stores.
+// block's 227 KB of shared memory, and a dense product over A multiplies
+// mostly zeros, so the work is three kernels:
+//  (a) mask_csc_kernel, a pre-pass over A (read once, coalesced along i):
+//      for each node tile of 32 columns, the union of its columns' nonzero
+//      rows in ascending order, and for each column its nonzero rows as
+//      positions in that union with the values Theta[c, j, i] * A[j, i]
+//      (compressed sparse columns, sized for the worst case of p entries a
+//      column, so no count ever crosses to the host). Up to p = 128 it is
+//      skipped: a launch and a workspace then cost more than they save, and
+//      every tile walks all p rows densely;
+//  (b) masked_logits_kernel over (node tile, sample tile) blocks: it stages
+//      F at the union's rows for its 128 samples in shared memory, chunk by
+//      chunk, and each thread (one node, 16 samples) walks its column's list
+//      in ascending j with fmaf from 0. A tile whose entries fill at least
+//      half of (columns x union rows) takes a dense walk over the union with
+//      Theta*A staged beside F instead (a dense mask). Both walks add the same
+//      products in the same ascending order; a zero of A adds nothing, so
+//      with finite inputs eta is bitwise what a dense product over all j
+//      gives. All C channels of a node live in one thread, so the epilogue
+//      adds the bias, applies the family residual (the Potts softmax needs
+//      every channel) and writes eta and r;
+//  (c) S[c,e] = r_c^T F_e through the Gram body (gram_body.cuh, shared with
+//      gram.cu), all tiles, samples split as the wrapper chose, partials
+//      summed in split order: deterministic without float atomics.
+// cl_logits is (a) and (b) with the epilogue writing eta only.
+// Plain float32 FMA throughout, not TF32: the float32 parity gates need it.
+#include <climits>
+
 #include <cuda_runtime.h>
 
 #include "gram_body.cuh"
@@ -41,119 +54,421 @@ namespace {
 // kLogits writes eta only (r is not touched): the cl_logits contract
 enum Kind { kIsing = 0, kGaussian = 1, kPotts = 2, kLogits = 3 };
 
-__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+constexpr int kNodeTile = 32;     // columns i of a block: one per lane
+constexpr int kSampleTile = 128;  // samples of a block: 16 per warp
+constexpr int kThreadSamples = 16;
+constexpr int kMaskThreads = 256;  // the masked product's block
+constexpr int kPreThreads = 512;   // the pre-pass's block: 16 warps
+constexpr int kPreRows = 16;       // rows of A each warp reads per pre-pass step
+constexpr int kRow = kSampleTile + 4;   // a staged row of F: float4-aligned, conflict-free
+// union rows staged per chunk (two chunks in flight)
+template <int C>
+constexpr int kUnionChunk = C == 1 ? 32 : C == 2 ? 16 : 8;
+// up to this many nodes the pre-pass is skipped: every tile walks all p rows
+// densely (the launch and the workspace cost more than the walk saves)
+constexpr int kFullRows = 128;
+// a column's entries held in registers at a time (sparse walk)
+template <int C>
+constexpr int kEntryBatch = C <= 2 ? 8 : 4;
+// two buffers of F [C][kUc][kRow] and Theta*A [C][kUc][32]
+template <int C>
+constexpr int kMaskedSmem = 2 * C * kUnionChunk<C> * (kRow + kNodeTile) * (int)sizeof(float);
 
-template <int KIND, int C>
-__global__ void __launch_bounds__(kThreads)
-logits_residual_kernel(const float* __restrict__ F, const float* __restrict__ theta,
-                       const float* __restrict__ mask, const float* __restrict__ bias,
-                       float* __restrict__ eta, float* __restrict__ r, int n, int p) {
-  __shared__ float As[C][kDepth][kTile];   // F tile, stored (j, sample)
-  __shared__ float Bs[C][kDepth][kTile];   // (Theta * A) tile, stored (j, node)
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int s0 = blockIdx.x * kTile, i0 = blockIdx.y * kTile;
-  const size_t np = (size_t)n * p;
+// The pre-pass's output, carved from one workspace of
+// repro_masked_workspace_words(C, p) 4-byte words.
+struct MaskCsc {
+  float* vals;   // (C, p, p): vals[c][e][i], entry e of column i
+  int* uidx;     // (p, p): uidx[e][i], the entry's position in its tile's union
+  int* urows;    // (tiles, p): the tile's union rows, ascending
+  int* ucount;   // (tiles,): union size
+  int* etotal;   // (tiles,): entries of the tile's columns
+  int* nnz;      // (p,): entries of column i
+};
 
-  float acc[C][4][4];
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[c][a][b] = 0.0f;
+inline int node_tiles(int p) { return (p + kNodeTile - 1) / kNodeTile; }
 
-  for (int j0 = 0; j0 < p; j0 += kDepth) {
-    for (int idx = threadIdx.x; idx < kTile * kDepth; idx += kThreads) {
-      // A: consecutive threads walk j (contiguous in F); B: walk i (contiguous)
-      const int am = idx / kDepth, ak = idx % kDepth;
-      const int bk = idx / kTile, bn = idx % kTile;
-      const int s = s0 + am, ja = j0 + ak;
-      const int jb = j0 + bk, i = i0 + bn;
-      const bool a_ok = s < n && ja < p;
-      const bool b_ok = jb < p && i < p;
-      const float mk = b_ok ? mask[(size_t)jb * p + i] : 0.0f;
+inline size_t masked_workspace_words(int C, int p) {
+  if (p <= kFullRows) return 0;
+  const size_t pp = (size_t)p * p, tiles = node_tiles(p);
+  return (size_t)C * pp + pp + tiles * p + 2 * tiles + p;
+}
+
+inline MaskCsc carve(void* work, int C, int p) {
+  const size_t pp = (size_t)p * p, tiles = node_tiles(p);
+  MaskCsc w;
+  w.vals = static_cast<float*>(work);
+  int* q = reinterpret_cast<int*>(w.vals + C * pp);
+  w.uidx = q;
+  q += pp;
+  w.urows = q;
+  q += tiles * p;
+  w.ucount = q;
+  q += tiles;
+  w.etotal = q;
+  q += tiles;
+  w.nnz = q;
+  return w;
+}
+
+// One block per node tile. The scan: warp w reads rows j0 + 16w .. j0 + 16w
+// + 15 of the tile's 32 columns (lane = column), the next step's rows loaded
+// while this step's are appended. Entries and union rows are appended in
+// ascending j: a step's offsets are prefix sums over the warps (kept
+// identically in every warp's registers) plus the rank of the row within the
+// warp's bit mask. The scan stores each entry's row j in its value slot; the
+// values Theta[c, j, i] * A[j, i] follow in a second pass shared by all warps,
+// with many loads in flight, so the scan never waits on Theta.
+__global__ void __launch_bounds__(kPreThreads)
+mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta, int C, int p,
+                MaskCsc ws) {
+  constexpr int kWarps = kPreThreads / 32;
+  constexpr int kStep = kWarps * kPreRows;
+  constexpr int kValBatch = 8;
+  __shared__ int s_u[kWarps];
+  __shared__ int s_c[kWarps][32];
+  const int tile = blockIdx.x, lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i = tile * kNodeTile + lane;
+  const bool col_ok = i < p;
+  const size_t pp = (size_t)p * p;
+  int* urows = ws.urows + (size_t)tile * p;
+  int ubase = 0, cbase = 0;
+  float m[kPreRows];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        As[c][ak][am] = a_ok ? F[c * np + (size_t)s * p + ja] : 0.0f;
-        Bs[c][bk][bn] = b_ok ? theta[(size_t)c * p * p + (size_t)jb * p + i] * mk : 0.0f;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kDepth; ++kk) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        float av[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) av[a] = As[c][kk][ty + 16 * a];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) bv[b] = Bs[c][kk][tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[c][a][b] = fmaf(av[a], bv[b], acc[c][a][b]);
-      }
-    }
-    __syncthreads();
+  for (int q = 0; q < kPreRows; ++q) {
+    const int j = w * kPreRows + q;
+    m[q] = (col_ok && j < p) ? mask[(size_t)j * p + i] : 0.0f;
   }
-
+  for (int j0 = 0; j0 < p; j0 += kStep) {
+    const int jw = j0 + w * kPreRows;
+    float next[kPreRows];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int s = s0 + ty + 16 * a;
+    for (int q = 0; q < kPreRows; ++q) {
+      const int j = jw + kStep + q;
+      next[q] = (col_ok && j < p) ? mask[(size_t)j * p + i] : 0.0f;
+    }
+    unsigned cbits = 0, ubits = 0;
 #pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int i = i0 + tx + 16 * b;
-      if (s >= n || i >= p) continue;
-      const size_t off = (size_t)s * p + i;
-      float e[C], y[C];
+    for (int q = 0; q < kPreRows; ++q) {
+      const bool nz = m[q] != 0.0f;
+      cbits |= static_cast<unsigned>(nz) << q;
+      ubits |= static_cast<unsigned>(__ballot_sync(0xffffffffu, nz) != 0) << q;
+    }
+    if (lane == 0) s_u[w] = __popc(ubits);
+    s_c[w][lane] = __popc(cbits);
+    __syncthreads();
+    int uoff = ubase, coff = cbase, utot = 0, ctot = 0;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        e[c] = acc[c][a][b] + bias[c * p + i];
-        eta[c * np + off] = e[c];
+    for (int v = 0; v < kWarps; ++v) {
+      if (v < w) {
+        uoff += s_u[v];
+        coff += s_c[v][lane];
       }
-      if (KIND == kLogits) continue;
+      utot += s_u[v];
+      ctot += s_c[v][lane];
+    }
+    // lane q < 16 writes union row q of the warp's rows
+    if (lane < kPreRows && ((ubits >> lane) & 1u))
+      urows[uoff + __popc(ubits & ((1u << lane) - 1u))] = jw + lane;
 #pragma unroll
-      for (int c = 0; c < C; ++c) y[c] = F[c * np + off];   // the node's own features
-      if (KIND == kIsing) {
-        r[off] = 2.0f * y[0] * sigmoidf(-2.0f * y[0] * e[0]);
-      } else if (KIND == kGaussian) {
-        r[off] = y[0] - e[0];
-      } else {
-        // softmax over [0, eta_0 .. eta_{C-1}]: the reference state's logit is 0
-        float m = 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) m = fmaxf(m, e[c]);
-        float den = expf(-m);
-#pragma unroll
-        for (int c = 0; c < C; ++c) den += expf(e[c] - m);
-#pragma unroll
-        for (int c = 0; c < C; ++c) r[c * np + off] = y[c] - expf(e[c] - m) / den;
+    for (int q = 0; q < kPreRows; ++q) {
+      if ((cbits >> q) & 1u) {
+        const size_t at = (size_t)(coff + __popc(cbits & ((1u << q) - 1u))) * p + i;
+        ws.uidx[at] = uoff + __popc(ubits & ((1u << q) - 1u));
+        ws.vals[at] = __int_as_float(jw + q);   // the row, until the value pass
       }
+    }
+    ubase += utot;
+    cbase += ctot;
+#pragma unroll
+    for (int q = 0; q < kPreRows; ++q) m[q] = next[q];
+    __syncthreads();   // s_u and s_c are rewritten by the next step
+  }
+  // values: warp w takes entries w, w + 16, ... of every column (the scan's
+  // writes are visible to the block after the barrier above)
+  for (int e0 = w; e0 < cbase; e0 += kWarps * kValBatch) {
+    int j[kValBatch];
+    float mk[kValBatch];
+#pragma unroll
+    for (int q = 0; q < kValBatch; ++q) {
+      const int e = e0 + q * kWarps;
+      j[q] = e < cbase ? __float_as_int(ws.vals[(size_t)e * p + i]) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < kValBatch; ++q)
+      mk[q] = e0 + q * kWarps < cbase ? mask[(size_t)j[q] * p + i] : 0.0f;
+    for (int c = C - 1; c >= 0; --c) {   // channel 0 last: its slot held the row
+#pragma unroll
+      for (int q = 0; q < kValBatch; ++q) {
+        const int e = e0 + q * kWarps;
+        if (e < cbase)
+          ws.vals[c * pp + (size_t)e * p + i] = theta[c * pp + (size_t)j[q] * p + i] * mk[q];
+      }
+    }
+  }
+  if (w == 0) {
+    if (col_ok) ws.nnz[i] = cbase;
+    int e = cbase;
+#pragma unroll
+    for (int o = 16; o; o >>= 1) e += __shfl_xor_sync(0xffffffffu, e, o);
+    if (lane == 0) {
+      ws.ucount[tile] = ubase;
+      ws.etotal[tile] = e;
     }
   }
 }
 
+__device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+__device__ __forceinline__ void fma16(float (&acc)[kThreadSamples], const float* f, float v) {
+#pragma unroll
+  for (int q = 0; q < kThreadSamples / 4; ++q) {
+    const float4 x = reinterpret_cast<const float4*>(f)[q];
+    acc[4 * q + 0] = fmaf(x.x, v, acc[4 * q + 0]);
+    acc[4 * q + 1] = fmaf(x.y, v, acc[4 * q + 1]);
+    acc[4 * q + 2] = fmaf(x.z, v, acc[4 * q + 2]);
+    acc[4 * q + 3] = fmaf(x.w, v, acc[4 * q + 3]);
+  }
+}
+
+// Block (node tile, sample tile); lane = node, warp w = samples 16w .. 16w + 15.
+// Chunks of the tile's union rows pass through two shared buffers: F at the
+// next chunk's rows is copied (cp.async, 4-byte gathers) while this chunk is
+// used, and on a dense tile Theta*A at the next chunk's rows waits in
+// registers. The union rows a thread gathers are read one chunk earlier still,
+// so no copy waits on an address, and the tile's bookkeeping, the first union
+// rows and a column's first entries are all read at once on entry. FULL: no
+// pre-pass ran (p <= kFullRows); the union is all p rows and every tile dense.
+template <int KIND, int C, bool FULL>
+__global__ void __launch_bounds__(kMaskThreads)
+masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ theta,
+                     const float* __restrict__ mask, const float* __restrict__ bias,
+                     MaskCsc ws, float* __restrict__ eta, float* __restrict__ r, int n, int p) {
+  constexpr int kUc = kUnionChunk<C>;
+  constexpr int kFPer = kUc / 8;                          // union rows a thread gathers F at
+  constexpr int kVPer = kUc * kNodeTile / kMaskThreads;   // Theta*A values a thread stages
+  extern __shared__ __align__(16) float smem[];
+  float* Fs = smem;                              // [2][C][kUc][kRow]
+  float* Vs = smem + 2 * C * kUc * kRow;         // [2][C][kUc][kNodeTile]
+  const int tile = blockIdx.x, lane = threadIdx.x % 32, w = threadIdx.x / 32;
+  const int i0 = tile * kNodeTile, i = i0 + lane;
+  const int s0 = blockIdx.y * kSampleTile, sw = w * kThreadSamples;
+  const size_t np = (size_t)n * p, pp = (size_t)p * p;
+  // FULL (p <= kFullRows, no pre-pass): the union is all p rows, walked densely
+  const int* urows = FULL ? nullptr : ws.urows + (size_t)tile * p;
+
+  // union rows of chunk k for this thread's F gathers (jf) and Theta*A (jv),
+  // read before the union's size is known: a row past the tile's p slots
+  // reads as 0 and is masked by the size later
+  int jf[kFPer], jv[kVPer];
+  auto row_of = [&](int u) { return u >= p ? 0 : FULL ? u : urows[u]; };
+  auto load_rows = [&](int k) {
+#pragma unroll
+    for (int q = 0; q < kFPer; ++q) jf[q] = row_of(k * kUc + q * 8 + (lane >> 2));
+#pragma unroll
+    for (int q = 0; q < kVPer; ++q) jv[q] = row_of(k * kUc + w + 8 * q);
+  };
+  load_rows(0);
+  const int U = FULL ? p : ws.ucount[tile];
+  const int etotal = FULL ? 0 : ws.etotal[tile];
+  const int my_n = i < p && !FULL ? ws.nnz[i] : 0;
+  // sparse walk: this column's entries in ascending j, kB of them in
+  // registers, all of a batch's loads in flight at once; the first batch is
+  // read on entry, before the column's count is known (a slot past the
+  // count is never used)
+  constexpr int kB = kEntryBatch<C>;
+  int eb = 0;
+  int bu[kB];
+  float bv[C][kB];
+  auto load_batch = [&](bool known) {
+#pragma unroll
+    for (int q = 0; q < kB; ++q) {
+      const bool ok = i < p && !FULL && eb + q < (known ? my_n : p);
+      const size_t at = (size_t)(eb + q) * p + i;
+      bu[q] = ok ? ws.uidx[at] : INT_MAX;
+#pragma unroll
+      for (int c = 0; c < C; ++c) bv[c][q] = ok ? ws.vals[c * pp + at] : 0.0f;
+    }
+  };
+  load_batch(false);
+  const int cols = min(kNodeTile, p - i0);
+  const bool dense = FULL || 2 * etotal >= cols * U;
+  const int chunks = (U + kUc - 1) / kUc;
+
+  // F[c, s, urows[u]]: a warp covers 8 rows x 4 samples (32-byte runs of a
+  // row of F where the union is contiguous; 32 distinct banks in Fs)
+  auto stage_f = [&](int k, int buf) {
+    const int uc = min(kUc, U - k * kUc);
+#pragma unroll
+    for (int q = 0; q < kFPer; ++q) {
+      const int uu = q * 8 + (lane >> 2);
+#pragma unroll
+      for (int th = 0; th < kSampleTile / 32; ++th) {
+        const int t = (w + 8 * th) * 4 + (lane & 3);
+        const bool ok = uu < uc && s0 + t < n;
+        const size_t src = (size_t)(ok ? s0 + t : 0) * p + (ok ? jf[q] : 0);
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          cp_async4(Fs + ((buf * C + c) * kUc + uu) * kRow + t, F + c * np + src, ok);
+      }
+    }
+  };
+  float vr[C][kVPer];
+  auto load_v = [&](int k) {
+    const int uc = min(kUc, U - k * kUc);
+#pragma unroll
+    for (int q = 0; q < kVPer; ++q) {
+      const bool ok = w + 8 * q < uc && i < p;
+      const size_t at = ok ? (size_t)jv[q] * p + i : 0;
+      const float mk = ok ? mask[at] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float t = ok ? theta[c * pp + at] : 0.0f;
+        vr[c][q] = mk != 0.0f ? t * mk : 0.0f;
+      }
+    }
+  };
+  auto store_v = [&](int buf) {
+#pragma unroll
+    for (int q = 0; q < kVPer; ++q)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        Vs[((buf * C + c) * kUc + w + 8 * q) * kNodeTile + lane] = vr[c][q];
+  };
+
+  float acc[C][kThreadSamples];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int t = 0; t < kThreadSamples; ++t) acc[c][t] = 0.0f;
+
+#pragma unroll
+  for (int q = 0; q < kB; ++q)
+    if (q >= my_n) bu[q] = INT_MAX;   // slots past the column's entries
+
+  if (chunks > 0) {
+    stage_f(0, 0);
+    if (dense) load_v(0);
+    load_rows(1);
+    if (dense) store_v(0);
+  }
+  cp_async_commit();
+  for (int k = 0; k < chunks; ++k) {
+    const int buf = k & 1;
+    if (k + 1 < chunks) {
+      stage_f(k + 1, buf ^ 1);
+      if (dense) load_v(k + 1);
+      load_rows(k + 2);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();   // chunk k's F (and Theta*A) are in buf for every thread
+    const int u0 = k * kUc, uc = min(kUc, U - u0);
+    if (dense) {
+      for (int uu = 0; uu < uc; ++uu) {
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          fma16(acc[c], Fs + ((buf * C + c) * kUc + uu) * kRow + sw,
+                Vs[((buf * C + c) * kUc + uu) * kNodeTile + lane]);
+      }
+      if (k + 1 < chunks) store_v(buf ^ 1);
+    } else {
+      // the batch's entries in this chunk, in order; entries below u0 were
+      // used in earlier chunks
+      while (true) {
+#pragma unroll
+        for (int q = 0; q < kB; ++q) {
+          if (bu[q] >= u0 && bu[q] < u0 + uc) {
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              fma16(acc[c], Fs + ((buf * C + c) * kUc + bu[q] - u0) * kRow + sw, bv[c][q]);
+          }
+        }
+        if (bu[kB - 1] < u0 + uc && eb + kB < my_n) {
+          eb += kB;
+          load_batch(true);
+        } else {
+          break;
+        }
+      }
+    }
+    __syncthreads();   // buf is refilled with chunk k + 2 next
+  }
+  cp_async_wait<0>();
+
+  if (i >= p) return;
+  float b[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) b[c] = bias[c * p + i];
+#pragma unroll
+  for (int t = 0; t < kThreadSamples; ++t) {
+    const int s = s0 + sw + t;
+    if (s >= n) continue;
+    const size_t off = (size_t)s * p + i;
+    float ev[C], y[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      ev[c] = acc[c][t] + b[c];
+      eta[c * np + off] = ev[c];
+    }
+    if (KIND == kLogits) continue;
+#pragma unroll
+    for (int c = 0; c < C; ++c) y[c] = F[c * np + off];   // the node's own features
+    if (KIND == kIsing) {
+      r[off] = 2.0f * y[0] * sigmoidf(-2.0f * y[0] * ev[0]);
+    } else if (KIND == kGaussian) {
+      r[off] = y[0] - ev[0];
+    } else {
+      // softmax over [0, eta_0 .. eta_{C-1}]: the reference state's logit is 0
+      float m = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) m = fmaxf(m, ev[c]);
+      float den = expf(-m);
+#pragma unroll
+      for (int c = 0; c < C; ++c) den += expf(ev[c] - m);
+#pragma unroll
+      for (int c = 0; c < C; ++c) r[c * np + off] = y[c] - expf(ev[c] - m) / den;
+    }
+  }
+}
+
+// The pre-pass, then the masked product with its epilogue.
 template <int KIND, int C>
 cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
-                          const float* bias, float* eta, float* r, int n, int p,
+                          const float* bias, void* work, float* eta, float* r, int n, int p,
                           cudaStream_t stream) {
-  dim3 grid((n + kTile - 1) / kTile, (p + kTile - 1) / kTile);
-  logits_residual_kernel<KIND, C><<<grid, kThreads, 0, stream>>>(F, theta, mask, bias, eta, r,
-                                                                 n, p);
+  static const cudaError_t attr[2] = {
+      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, false>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaskedSmem<C>),
+      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaskedSmem<C>)};
+  const bool full = p <= kFullRows;
+  if (attr[full] != cudaSuccess) return attr[full];
+  dim3 grid(node_tiles(p), (n + kSampleTile - 1) / kSampleTile);
+  if (full) {
+    masked_logits_kernel<KIND, C, true><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
+        F, theta, mask, bias, MaskCsc{}, eta, r, n, p);
+    return cudaGetLastError();
+  }
+  const MaskCsc ws = carve(work, C, p);
+  mask_csc_kernel<<<node_tiles(p), kPreThreads, 0, stream>>>(mask, theta, C, p, ws);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  masked_logits_kernel<KIND, C, false><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
+      F, theta, mask, bias, ws, eta, r, n, p);
   return cudaGetLastError();
 }
 
 // The channel count as a template parameter, C = 1 .. 5.
 template <int KIND>
 cudaError_t launch_channels(int C, const float* F, const float* theta, const float* mask,
-                            const float* bias, float* eta, float* r, int n, int p,
+                            const float* bias, void* work, float* eta, float* r, int n, int p,
                             cudaStream_t stream) {
   switch (C) {
-    case 1: return launch_logits<KIND, 1>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 2: return launch_logits<KIND, 2>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 3: return launch_logits<KIND, 3>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 4: return launch_logits<KIND, 4>(F, theta, mask, bias, eta, r, n, p, stream);
-    case 5: return launch_logits<KIND, 5>(F, theta, mask, bias, eta, r, n, p, stream);
+    case 1: return launch_logits<KIND, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
+    case 2: return launch_logits<KIND, 2>(F, theta, mask, bias, work, eta, r, n, p, stream);
+    case 3: return launch_logits<KIND, 3>(F, theta, mask, bias, work, eta, r, n, p, stream);
+    case 4: return launch_logits<KIND, 4>(F, theta, mask, bias, work, eta, r, n, p, stream);
+    case 5: return launch_logits<KIND, 5>(F, theta, mask, bias, work, eta, r, n, p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -162,45 +477,54 @@ cudaError_t launch_channels(int C, const float* F, const float* theta, const flo
 
 extern "C" {
 
-// Largest channel count the Potts and logits instantiations cover: the static
-// shared tiles of the logits kernel hold 2*C*16*64 floats, under 48 KB up to C = 5.
+// Largest channel count the Potts and logits instantiations cover: the
+// chunk sizes of the masked product are set for C = 1 .. 5.
 int repro_score_max_channels() { return 5; }
 
-// kind: 0 ising, 1 gaussian, 2 potts. All tensors float32, contiguous.
-// partial holds splits*C*C*p*p floats when splits > 1 (unused otherwise);
-// chunk is the sample count per split. Returns a cudaError_t (0 on success).
+// 4-byte words of the workspace the masked product's pre-pass fills for C
+// channels and p nodes (worst case: p entries in every column; none when
+// p <= kFullRows, where there is no pre-pass and work may be null).
+size_t repro_masked_workspace_words(int C, int p) { return masked_workspace_words(C, p); }
+
+// kind: 0 ising, 1 gaussian, 2 potts. All tensors float32, contiguous; work
+// holds repro_masked_workspace_words(C, p) words. partial holds
+// splits*C*C*p*p floats when splits > 1 (unused otherwise); chunk is the
+// sample count per split; vec: p % 4 == 0 and F 16-byte aligned (the Gram
+// body's float4 path). Returns a cudaError_t (0 on success).
 int repro_score_channels(int kind, int C, const float* F, const float* theta,
-                         const float* mask, const float* bias, float* eta, float* r,
-                         float* partial, float* S, int n, int p, int splits, int chunk,
-                         void* stream_handle) {
+                         const float* mask, const float* bias, void* work, float* eta,
+                         float* r, float* partial, float* S, int n, int p, int splits,
+                         int chunk, int vec, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (n <= 0 || p <= 0 || C <= 0 || splits <= 0 || chunk <= 0) return cudaErrorInvalidValue;
   cudaError_t err;
   switch (kind) {
     case kIsing:
       if (C != 1) return cudaErrorInvalidValue;
-      err = launch_logits<kIsing, 1>(F, theta, mask, bias, eta, r, n, p, stream);
+      err = launch_logits<kIsing, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
       break;
     case kGaussian:
       if (C != 1) return cudaErrorInvalidValue;
-      err = launch_logits<kGaussian, 1>(F, theta, mask, bias, eta, r, n, p, stream);
+      err = launch_logits<kGaussian, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
       break;
     case kPotts:
-      err = launch_channels<kPotts>(C, F, theta, mask, bias, eta, r, n, p, stream);
+      err = launch_channels<kPotts>(C, F, theta, mask, bias, work, eta, r, n, p, stream);
       break;
     default:
       return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  return launch_gram(r, F, partial, S, C, n, p, splits, chunk, stream);
+  return launch_gram<false>(r, F, partial, S, C, n, p, splits, chunk, vec, stream);
 }
 
 // eta[c] = F[c] (Theta[c] * A) + b[c] for C = 1 .. repro_score_max_channels();
-// all tensors float32, contiguous. Returns a cudaError_t (0 on success).
+// all tensors float32, contiguous; work as for repro_score_channels.
+// Returns a cudaError_t (0 on success).
 int repro_cl_logits(int C, const float* F, const float* theta, const float* mask,
-                    const float* bias, float* eta, int n, int p, void* stream_handle) {
+                    const float* bias, void* work, float* eta, int n, int p,
+                    void* stream_handle) {
   if (n <= 0 || p <= 0) return cudaErrorInvalidValue;
-  return launch_channels<kLogits>(C, F, theta, mask, bias, eta, nullptr, n, p,
+  return launch_channels<kLogits>(C, F, theta, mask, bias, work, eta, nullptr, n, p,
                                   static_cast<cudaStream_t>(stream_handle));
 }
 

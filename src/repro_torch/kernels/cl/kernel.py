@@ -6,8 +6,18 @@ parameter of the kernel. The fit path always hands it float32 operands
 (:func:`repro_torch.kernels.cl.family.fused_pseudo_score` casts them).
 :func:`cl_logits` is the same masked product without the residual and Gram
 stages (the TPU's ``cl_logits``); it takes float32 operands on CUDA.
+
+The masked product follows the nonzeros of the mask: a pre-pass on the card
+lists them by column, and the product walks those lists (or, for a tile of
+columns whose lists fill most of their rows, a dense walk over those rows;
+up to p = 128 there is no pre-pass and every tile walks all rows densely).
+With finite operands eta is bitwise what a dense product over all rows gives.
+Where a non-finite Theta or F meets a zero of the mask the plain version
+gives NaN (inf * 0); the kernel skips that term on a sparse tile.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -15,24 +25,53 @@ from ..build import LIBRARIES, check
 from .epilogues import KIND_CODES, require_epilogue
 from .ref import cl_logits_ref, cl_score_channels_ref
 
-#: output tile edge of the kernel (rows and columns)
-_TILE = 64
+#: output tile edge of the Gram body (``kGramTile`` in csrc/gram_body.cuh)
+GRAM_TILE = 128
+#: samples of one pipeline stage of the Gram body (``kGramSlab``); a split
+#: holds a whole number of them
+GRAM_SLAB = 16
 #: blocks the Gram product should reach (two per SM of a 132-SM H100)
 _TARGET_BLOCKS = 264
 #: fewest samples a split of the Gram product should hold
-_MIN_SPLIT = 128
+_MIN_SPLIT = 64
+
+
+def gram_tile_count(p: int, symmetric: bool) -> int:
+    """Blocks of the Gram body per channel pair and split: the tiles on and
+    above the diagonal (symmetric) or every tile (``gram_tile_count`` in
+    csrc/gram_body.cuh)."""
+    t = -(-p // GRAM_TILE)
+    return t * (t + 1) // 2 if symmetric else t * t
+
+
+def split_samples(blocks: int, n: int):
+    """(splits, chunk) of the Gram body's sample axis for ``blocks`` output
+    blocks: enough splits to fill the card in one wave, none shorter than
+    ``_MIN_SPLIT`` samples, chunks a multiple of ``GRAM_SLAB``; a function
+    of the shape alone, so a call repeats bitwise."""
+    splits = max(1, min(_TARGET_BLOCKS // blocks, -(-n // _MIN_SPLIT), 65535))
+    chunk = -(-n // splits)
+    chunk = -(-chunk // GRAM_SLAB) * GRAM_SLAB
+    return -(-n // chunk), chunk
 
 
 def score_launch_shape(C: int, n: int, p: int):
-    """(splits, chunk) of the Gram product's sample axis for one shape."""
-    tiles = -(-p // _TILE)
-    base_blocks = tiles * tiles * C * C
-    splits = max(1, min(-(-_TARGET_BLOCKS // base_blocks), -(-n // _MIN_SPLIT),
-                        65535 // (C * C)))
-    chunk = -(-n // splits)
-    chunk = -(-chunk // 16) * 16
-    splits = -(-n // chunk)
-    return splits, chunk
+    """(splits, chunk) of the score kernel's Gram S (all C*C channel pairs,
+    every tile)."""
+    return split_samples(gram_tile_count(p, False) * C * C, n)
+
+
+def float4_ready(p: int, *tensors) -> bool:
+    """Rows of p floats and 16-byte aligned bases: the float4 copy path."""
+    return p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_words(C: int, p: int) -> int:
+    """4-byte words of the masked product's pre-pass workspace: the mask's
+    nonzeros by column, sized for the worst case so no count crosses to
+    the host."""
+    return LIBRARIES.get("score").repro_masked_workspace_words(C, p)
 
 
 def _check_operands(name, F, theta, mask, bias):
@@ -72,8 +111,12 @@ def cl_logits(F, theta, mask, bias):
                          f"{lib.repro_score_max_channels()} channels, "
                          f"got C = {C}")
     eta = torch.empty((C, n, p), dtype=torch.float32, device=F.device)
+    words = _workspace_words(C, p)
+    work = (torch.empty(words, dtype=torch.int32, device=F.device)
+            if words else None)
     err = lib.repro_cl_logits(C, F.data_ptr(), theta.data_ptr(),
                               mask.data_ptr(), bias.data_ptr(),
+                              work.data_ptr() if words else None,
                               eta.data_ptr(), n, p,
                               torch.cuda.current_stream(F.device).cuda_stream)
     check(err, "cl_logits kernel")
@@ -116,13 +159,19 @@ def cl_score_channels(F, theta, mask, bias, *, kind: str):
     eta = torch.empty((C, n, p), dtype=torch.float32, device=dev)
     r = torch.empty((C, n, p), dtype=torch.float32, device=dev)
     S = torch.empty((C, C, p, p), dtype=torch.float32, device=dev)
-    partial = (torch.empty(splits * C * C * p * p, dtype=torch.float32,
-                           device=dev) if splits > 1 else S)
+    # one scratch buffer: the Gram partials (when the samples are split),
+    # then the pre-pass's workspace (none for a small p)
+    part = splits * C * C * p * p if splits > 1 else 0
+    words = part + _workspace_words(C, p)
+    scratch = torch.empty(words, dtype=torch.float32, device=dev) \
+        if words else None
+    base = scratch.data_ptr() if words else 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.repro_score_channels(
         KIND_CODES[kind], C, F.data_ptr(), theta.data_ptr(), mask.data_ptr(),
-        bias.data_ptr(), eta.data_ptr(), r.data_ptr(), partial.data_ptr(),
-        S.data_ptr(), n, p, splits, chunk, stream)
+        bias.data_ptr(), base + 4 * part, eta.data_ptr(), r.data_ptr(),
+        base if part else S.data_ptr(), S.data_ptr(), n, p, splits, chunk,
+        int(float4_ready(p, F)), stream)
     check(err, "cl_score_channels kernel")
     cl_score_channels.launches += 1
     return eta, r, S

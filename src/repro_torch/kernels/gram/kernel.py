@@ -1,15 +1,22 @@
 """Wrapper of the Gram kernel ``csrc/gram.cu``: ``G = S^T S / n``.
 
 The kernel is the score kernel's Gram body (``csrc/gram_body.cuh``) with
-r = F = S and one channel, so it splits the sample axis the same way.
+r = F = S and one channel, in its symmetric mode: only the tiles on and
+above the diagonal are launched (:func:`gram_launch_shape`).
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import LIBRARIES, check
-from ..cl.kernel import score_launch_shape
+from ..cl.kernel import float4_ready, gram_tile_count, split_samples
 from .ref import gram_ref
+
+
+def gram_launch_shape(n: int, d: int):
+    """(splits, chunk) of the sample axis for G of an (n, d) matrix: as many
+    splits as fill the card with the triangle's tiles."""
+    return split_samples(gram_tile_count(d, True), n)
 
 
 def gram(s):
@@ -27,12 +34,13 @@ def gram(s):
         raise ValueError(f"gram needs a contiguous (n, d) matrix, got shape "
                          f"{tuple(s.shape)}")
     n, d = s.shape
-    splits, chunk = score_launch_shape(1, n, d)
+    splits, chunk = gram_launch_shape(n, d)
     G = torch.empty((d, d), dtype=torch.float32, device=s.device)
     partial = (torch.empty(splits * d * d, dtype=torch.float32,
                            device=s.device) if splits > 1 else G)
     err = LIBRARIES.get("gram").repro_gram(
         s.data_ptr(), partial.data_ptr(), G.data_ptr(), n, d, splits, chunk,
+        int(float4_ready(d, s)),
         torch.cuda.current_stream(s.device).cuda_stream)
     check(err, "gram kernel")
     gram.launches += 1

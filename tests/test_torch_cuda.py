@@ -293,6 +293,141 @@ def test_gram_kernel_matches_plain(dev, n, d):
         gmod.gram(S.double())
 
 
+@pytest.mark.parametrize("n,d", [(n, d) for n in (50, 1001, 16384)
+                                 for d in (7, 130, 513)]
+                         + [(1, 128), (5, 512), (7, 9)])
+def test_gram_kernel_ragged_is_symmetric_and_repeats(dev, n, d):
+    # only the tiles on and above the diagonal run; an off-diagonal tile is
+    # written to both places, so G is bitwise symmetric, and the splits are
+    # summed in a fixed order, so a second call is bitwise equal; n = 1, 5
+    # and 7 hold fewer samples than one pipeline slab (the copy zero-fills)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + d)
+    S = torch.randn((n, d), generator=gen, device=dev)
+    got = gmod.gram(S)
+    assert torch.equal(got, got.T)
+    assert torch.equal(got, gmod.gram(S))
+    assert _rel(got, gmod.gram_ref(S)) <= 1e-5
+
+
+def test_gram_kernel_reads_an_unaligned_view(dev):
+    # a contiguous view one float into its storage takes the 4-byte copies
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    S = torch.randn((1001 * 128 + 1,), generator=gen, device=dev)[1:]
+    S = S.view(1001, 128)
+    got = gmod.gram(S)
+    assert torch.equal(got, got.T)
+    assert _rel(got, gmod.gram_ref(S)) <= 1e-5
+
+
+def _grid_mask(dev, side):
+    p = side * side
+    m = torch.zeros((p, p), device=dev)
+    idx = torch.arange(p, device=dev)
+    right = idx[idx % side < side - 1]
+    down = idx[idx // side < side - 1]
+    m[right, right + 1] = m[right + 1, right] = 1.0
+    m[down, down + side] = m[down + side, down] = 1.0
+    return m
+
+
+def _logits_inputs(dev, C, n, p, mask, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    F = torch.randn((C, n, p), generator=gen, device=dev)
+    th = torch.randn((C, p, p), generator=gen, device=dev)
+    bias = torch.randn((C, p), generator=gen, device=dev)
+    if isinstance(mask, float):
+        mask = (torch.rand((p, p), generator=gen, device=dev) < mask).float()
+    return F, th, mask, bias
+
+
+@pytest.mark.parametrize("mask", ["density .05", "density 1.0", "grid 16x16",
+                                  "empty column", "weighted"])
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+def test_cl_logits_kernel_masks_match_plain_and_repeat(dev, C, mask):
+    # the product walks A's nonzeros (sparse tiles) or the union of a tile's
+    # rows (dense tiles); ragged n and p divide no tile
+    n, p = 333, 256 if mask == "grid 16x16" else 130
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(C)
+    if mask == "grid 16x16":
+        m = _grid_mask(dev, 16)
+    elif mask == "density 1.0":
+        m = torch.ones((p, p), device=dev)
+    elif mask == "empty column":
+        m = (torch.rand((p, p), generator=gen, device=dev) < .2).float()
+        m[:, 3] = 0.0
+    elif mask == "weighted":
+        m = torch.randn((p, p), generator=gen, device=dev) \
+            * (torch.rand((p, p), generator=gen, device=dev) < .3)
+    else:
+        m = .05
+    F, th, m, bias = _logits_inputs(dev, C, n, p, m, seed=C + p)
+    got = kmod.cl_logits(F, th, m, bias)
+    assert torch.equal(got, kmod.cl_logits(F, th, m, bias))
+    assert _rel(got, kmod.cl_logits_ref(F, th, m, bias)) <= 1e-5
+    if mask == "empty column":
+        # no term at all: eta is the bias, exactly
+        assert torch.equal(got[:, :, 3], bias[:, None, 3].expand(C, n))
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_cl_logits_kernel_zero_mask_gives_the_bias(dev, C):
+    F, th, _, bias = _logits_inputs(dev, C, 1001, 37, 0.0, seed=7)
+    mask = torch.zeros((37, 37), device=dev)
+    got = kmod.cl_logits(F, th, mask, bias)
+    assert torch.equal(got, bias[:, None, :].expand(C, 1001, 37))
+
+
+def test_cl_logits_kernel_field_grid_matches_plain(dev):
+    # the field cell's mask (64 x 64 grid) at a short sample count
+    F, th, _, bias = _logits_inputs(dev, 1, 300, 4096, 0.0, seed=3)
+    mask = _grid_mask(dev, 64)
+    got = kmod.cl_logits(F, th, mask, bias)
+    assert torch.equal(got, kmod.cl_logits(F, th, mask, bias))
+    assert _rel(got, kmod.cl_logits_ref(F, th, mask, bias)) <= 1e-5
+
+
+def test_masked_wrappers_do_not_synchronise_with_the_host(dev):
+    # the pre-pass sizes its workspace by the worst case: no count is read
+    # back, so neither wrapper waits on the card
+    F, th, _, bias = _logits_inputs(dev, 2, 500, 144, 0.0, seed=11)
+    mask = _grid_mask(dev, 12)
+    kmod.cl_logits(F, th, mask, bias)              # builds and loads first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kmod.cl_logits(F, th, mask, bias)
+        kmod.cl_score_channels(F, th, mask, bias, kind="potts")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_score_kernel_grid_mask_matches_plain_and_repeats(dev, kind):
+    # the score kernel takes the masked product and the Gram body unchanged
+    C, n, side = KINDS[kind], 1001, 12
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(side + C)
+    p = side * side
+    x = torch.randint(0, 3, (n, p), generator=gen, device=dev).float()
+    F = (torch.stack([(x == c).float() for c in range(1, C + 1)])
+         if kind == "potts" else (2.0 * (x > 0).float() - 1.0)[None])
+    th = 0.2 * torch.randn((C, p, p), generator=gen, device=dev)
+    th = (th + th.transpose(1, 2)).contiguous()
+    mask = _grid_mask(dev, side)
+    bias = 0.1 * torch.randn((C, p), generator=gen, device=dev)
+    got = kmod.cl_score_channels(F, th, mask, bias, kind=kind)
+    again = kmod.cl_score_channels(F, th, mask, bias, kind=kind)
+    want = kmod.cl_score_channels_ref(F, th, mask, bias, kind)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for name, g, w, tol in zip(("eta", "r", "S"), got, want,
+                               (1e-5, 1e-5, 1e-4)):
+        assert _rel(g, w) <= tol, name
+
+
 def test_reduced_llama_on_the_card_matches_the_cpu(dev):
     cfg = TC.reduced(TC.get("llama3.2-3b"))
     gen = torch.Generator()

@@ -225,6 +225,42 @@ def test_newton_splits_hold_samples_and_keep_vector_alignment(k, C, d, n):
     assert L == nmod.newton_launch_shape(k=k, C=C, d=d, n=n)
 
 
+@pytest.mark.parametrize("p,triangle,square", [
+    (1, 1, 1), (7, 1, 1), (128, 1, 1), (129, 3, 4), (512, 10, 16),
+    (513, 15, 25), (4096, 528, 1024)])
+def test_gram_tile_count_is_the_upper_triangle(p, triangle, square):
+    # symmetric mode (gram) launches the tiles on and above the diagonal
+    # of the 128-wide tile grid, full mode (the score kernel's S) all of
+    # them; the card tests check the decode (G bitwise symmetric)
+    assert kmod.gram_tile_count(p, True) == triangle
+    assert kmod.gram_tile_count(p, False) == square
+
+
+@pytest.mark.parametrize("n,d", [(1, 130), (7, 7), (50, 7), (1001, 130),
+                                 (1001, 513), (4000, 100), (16384, 512),
+                                 (16384, 4096), (100000, 64)])
+def test_gram_splits_tile_the_samples_in_order(n, d):
+    # the splits tile [0, n) in order, each a whole number of pipeline
+    # slabs and none empty; the triangle's blocks times the splits stay in
+    # one wave of the card's target; the same shape gives the same plan
+    splits, chunk = tgram.gram_launch_shape(n, d)
+    assert (splits - 1) * chunk < n <= splits * chunk
+    assert chunk % kmod.GRAM_SLAB == 0
+    tiles = kmod.gram_tile_count(d, True)
+    assert splits == 1 or splits * tiles <= kmod._TARGET_BLOCKS
+    assert splits == 1 or chunk >= kmod._MIN_SPLIT
+    assert (splits, chunk) == tgram.gram_launch_shape(n, d)
+
+
+def test_gram_launch_shape_pinned_at_the_bench_shape():
+    # kernels_bench n=16384 d=512: 10 triangle tiles x 26 splits of 640
+    # samples (the full square would be 16 tiles)
+    assert kmod.gram_tile_count(512, True) == 10
+    assert kmod.gram_tile_count(512, False) == 16
+    assert tgram.gram_launch_shape(16384, 512) == (26, 640)
+    assert tgram.gram_launch_shape(16384, 4096) == (1, 16384)
+
+
 @pytest.mark.parametrize("C,p", [(1, 37), (1, 130), (2, 37), (3, 130)])
 def test_logits_ref_matches_pallas_interpret_and_reference(C, p):
     # n = 300 and p = 37, 130 divide none of the 128 tiles
