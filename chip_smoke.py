@@ -9,7 +9,8 @@ Phases:
   2. print the card's name and power limit (nvidia-smi);
   3. hold every kernel against its plain PyTorch version on the card: all
      three epilogue kinds, weighted and unweighted, shapes that do not divide
-     the tiles, and the exact bucket and score shapes of phases 4 and 5, and
+     the tiles, and the exact bucket and score shapes of phases 4, 5 and 9
+     (the field bucket with per-node prefix weights, a ragged slice), and
      that a second Newton call is bitwise equal; time kernel, plain version
      and a library yardstick with CUDA events, and the Newton and score
      kernels' device time under torch.profiler (back-to-back events read
@@ -38,7 +39,19 @@ Phases:
      8192-token prompt, 16 new tokens); prefill then teacher-forced decode
      against the full forward, the window cache's length, greedy
      determinism, 28 flash-attention launches per prefill, and the device's
-     busy share of one profiled prefill.
+     busy share of one profiled prefill;
+  9. streaming and joint estimation on the 64 x 64 grid: a stream from a
+     2048-row buffer takes 8 chunks of 2048 rows with a refit each (three
+     doublings) and must equal one fit of the 16384 rows within 1e-5; a
+     windowed refit (window 4096, half the nodes at 8192 rows and half at
+     16384) through the kernel against the plain refit; joint ADMM from the
+     diagonal one-step (30 rounds, 15 Newton iterations) against the plain
+     joint, with its primal residual falling and the device's busy share of
+     one profiled joint; the simulator, 16 rounds of 256 arrivals per node
+     on a perfect network (equal to the global diagonal combine within
+     1e-5) and streaming ADMM on a lossy one (its error falling); the Newton
+     kernel launched in every refit and prox round, the score kernel in
+     every score norm, and no plain version on a CUDA tensor.
 
 Samples are drawn here, seeded, by a chromatic Gibbs sweep written with
 neighbour lists in torch on the card; true parameters come from a seeded
@@ -249,6 +262,159 @@ def device_profile(torch, label: str, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def phase9(torch, np, A, graph, truth, X_field, smi, gate, launches,
+           plain_cuda_calls, nmod, kmod):
+    """Streaming, joint ADMM and the simulator on the 64 x 64 grid, on the
+    card: every refit and prox round through the Newton kernel, every score
+    norm through the score kernel, no plain version on a CUDA tensor."""
+    from repro_torch.core import combine
+    from repro_torch.stream import ArrivalSpec, NetworkConfig
+
+    print(f"phase 9: streaming, joint ADMM and the simulator on the "
+          f"{graph.p}-node grid ({smi})", flush=True)
+    Xs = X_field[:16384]
+    plan = A.Plan(graph=graph, family="ising", combiners=FIELD_COMBINERS)
+    sess = plan.session()
+
+    def counted(fn):
+        """fn() on the kernel path, every count set to 0 just before and
+        read just after: (result, wall s, Newton launches, score launches,
+        plain calls on CUDA tensors)."""
+        nmod.bucket_newton_stats.launches = 0
+        kmod.cl_score_channels.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl, sl = nmod.bucket_newton_stats.launches, \
+            kmod.cl_score_channels.launches
+        launches["newton"] += nl
+        launches["score_c1"] += sl
+        return out, wall, nl, sl, plain_cuda_calls["n"]
+
+    def mse(theta):
+        d = theta - truth
+        return float(d @ d)
+
+    # ---- stream: 8 chunks of 2048 from a 2048-row buffer, a refit each
+    est = sess.stream(capacity=2048)
+    walls, newton = [], []
+    clean = True
+    for c in range(8):
+        est.ingest(Xs[c * 2048:(c + 1) * 2048])
+        _, wall, nl, sl, pc = counted(est.refit)
+        walls.append(wall)
+        newton.append(nl)
+        clean &= nl >= 1 and pc == 0
+    batch = sess.fit(Xs)
+    dth = max(float(np.max(np.abs(a.theta - b.theta)))
+              for a, b in zip(est.fits, batch.fits))
+    gate(dth <= 1e-5 and clean and est.buffer.capacity == 16384,
+         f"stream: 8 chunks of 2048 (capacity 2048 -> "
+         f"{est.buffer.capacity}) against one fit of {Xs.shape[0]} rows: "
+         f"theta max diff {dth:.2e}; Newton launches per refit {newton}")
+    theta_s = combine(graph, est.fits, "diagonal")
+    score, _, _, sl, pc = counted(lambda: est.score_norm(theta_s))
+    gate(sl == 1 and pc == 0 and np.isfinite(score),
+         f"stream score_norm {score:.4e}: score launches {sl}, plain calls "
+         f"on CUDA tensors {pc}")
+    print(f"  stream refit wall: cold {walls[0]:.4f} s, warm median "
+          f"{statistics.median(walls[1:]):.4f} s (range "
+          f"{min(walls[1:]):.4f}-{max(walls[1:]):.4f}); Newton iterations "
+          f"per refit {newton} (one bucket); diagonal MSE to the truth "
+          f"{mse(theta_s):.4f}", flush=True)
+    del est
+
+    # ---- windowed heterogeneous refit: kernel against plain
+    sess_w = plan.replace(stream_window=4096).session()
+    half = np.where(np.arange(graph.p) < graph.p // 2, 8192, 16384)
+    pair = [sess_w.stream(capacity=16384) for _ in range(2)]
+    for e in pair:
+        e.extend_pool(Xs)
+        e.advance(half)
+    fk, wall_k, nl, _, pc = counted(pair[0].refit)
+    t0 = time.perf_counter()
+    fp = pair[1].refit(use_kernel=False)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    dth = max(float(np.max(np.abs(a.theta - b.theta)))
+              for a, b in zip(fk, fp))
+    gate(dth <= GATE_THETA and nl >= 1 and pc == 0,
+         f"stream window 4096, half the nodes at 8192 rows and half at "
+         f"16384: kernel vs plain refit theta max diff {dth:.2e}; wall "
+         f"{wall_k:.4f} s (plain {wall_p:.4f} s), {nl} Newton launches")
+    del pair, fk, fp
+
+    # ---- joint: ADMM from the diagonal one-step, 30 rounds x 15 Newton
+    sess_j = A.Plan(graph=graph, admm_init="diagonal").session()
+    fit_iters = {}
+    sess_j.fit_local(Xs, iters=fit_iters)
+    res_j, wall_j, nl, sl, pc = counted(lambda: sess_j.joint(Xs))
+    res_p = sess_j.joint(Xs, use_kernel=False)
+    dth = float(np.max(np.abs(res_j.theta - res_p.theta)))
+    pr = res_j.primal_residual
+    rounds = sess_j.plan.admm_iters
+    gate(dth <= GATE_THETA and bool(np.all(np.isfinite(res_j.trajectory)))
+         and pr[-1] < pr[0] and nl >= sum(fit_iters.values()) + rounds
+         and sl == 1 and pc == 0,
+         f"joint: kernel vs plain theta max diff {dth:.2e}; primal residual "
+         f"{pr[0]:.3e} -> {pr[-1]:.3e}; Newton launches {nl} (local fits "
+         f"{sum(fit_iters.values())} + {rounds} prox rounds x 1..."
+         f"{sess_j.plan.admm_newton_iters}), score launches {sl}, plain "
+         f"calls on CUDA tensors {pc}")
+    print(f"  joint wall {wall_j:.3f} s (plain {res_p.wall_s:.3f} s), "
+          f"{rounds} rounds; MSE to the truth: joint {mse(res_j.theta):.4f},"
+          f" diagonal one-step {mse(batch.combined['diagonal']):.4f}; "
+          f"comm scalars {res_j.comm_scalars['admm']}", flush=True)
+    device_profile(torch, "joint", lambda: sess_j.joint(Xs))
+    del res_j, res_p, batch
+
+    # ---- simulate: 16 rounds of 256 arrivals per node on a perfect network
+    def rounds_of(sim, n_rounds):
+        walls, errs, clean = [], [], True
+        for _ in range(n_rounds):
+            res, wall, nl, _, pc = counted(lambda: sim.run(1))
+            walls.append(wall)
+            errs.append(float(res.err[-1]))
+            clean &= nl >= 1 and pc == 0
+        return res, walls, errs, clean
+
+    sim = sess.simulate(X_field, arrivals=ArrivalSpec(rate=256),
+                        theta_star=truth)
+    res, walls, errs, clean = rounds_of(sim, 16)
+    n_seen = int(res.samples_seen[-1])
+    want = sess.fit(X_field[:n_seen]).combined["diagonal"]
+    dth = float(np.max(np.abs(res.theta[-1] - want)))
+    score, _, _, sl, pc = counted(lambda: sim.est.score_norm(res.theta[-1]))
+    gate(dth <= 1e-5 and clean and sl == 1 and pc == 0,
+         f"simulate one_step diagonal, perfect network, 16 rounds: last "
+         f"estimate vs the global diagonal combine of a fit on {n_seen} rows"
+         f": max diff {dth:.2e}; Newton launches in every round {clean}; "
+         f"score_norm {score:.4e}")
+    print(f"  simulate one_step: median round wall "
+          f"{statistics.median(walls):.4f} s (range {min(walls):.4f}-"
+          f"{max(walls):.4f}); scalars sent {int(res.scalars_sent[-1])}; "
+          f"MSE round 1 {errs[0]:.4f} -> round 16 {errs[-1]:.4f}",
+          flush=True)
+    del sim
+    sim = sess.simulate(X_field, estimator="admm",
+                        arrivals=ArrivalSpec(rate=256), theta_star=truth,
+                        network=NetworkConfig(drop_prob=0.1, seed=0))
+    res, walls, errs, clean = rounds_of(sim, 16)
+    gate(bool(np.all(np.isfinite(res.theta))) and errs[-1] < errs[0]
+         and clean,
+         f"simulate admm, drop_prob 0.1: MSE round 1 {errs[0]:.4f} -> round "
+         f"16 {errs[-1]:.4f}; Newton launches in every round {clean}")
+    print(f"  simulate admm: median round wall {statistics.median(walls):.4f}"
+          f" s (range {min(walls):.4f}-{max(walls):.4f}); scalars sent "
+          f"{int(res.scalars_sent[-1])} (dropped "
+          f"{sim.net.scalars_dropped})", flush=True)
+    del sim
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- main
@@ -536,6 +702,26 @@ def main() -> int:
         tag = f"field_ising bucket d={d} k={k} n={n}"
         check_newton(tag, "ising", *args)
         main_rows["newton"] = time_newton(tag, "ising", args, 10)
+        # the shape of a stream refit and of an ADMM prox round: per-node
+        # prefix weights (half the nodes at 8192 rows, half at 16384), then
+        # a ragged slice of it with ragged prefixes
+        Zb, base, xi, W, _ = args
+        counts = torch.where(torch.arange(k, device=dev) < k // 2, n // 2, n)
+        sw = (torch.arange(n, device=dev)[None, :]
+              < counts[:, None]).float()
+        wargs = (Zb, base, xi, W, sw)
+        check_newton(tag + " weighted", "ising", *wargs)
+        main_rows["newton_weighted"] = time_newton(tag + " weighted",
+                                                   "ising", wargs, 10)
+        kr, nr = 333, 5007
+        rag = torch.randint(0, nr + 1, (kr,), generator=gen, device=dev)
+        check_newton(f"field_ising prox slice d={d} k={kr} n={nr} ragged "
+                     f"weights", "ising", Zb[:kr, :, :, :nr].contiguous(),
+                     base[:kr, :, :nr].contiguous(),
+                     xi[:kr, :nr].contiguous(), W[:kr],
+                     (torch.arange(nr, device=dev)[None, :]
+                      < rag[:, None]).float())
+        del wargs, sw, Zb, base, xi, W
     del buckets
     F, thc, mask, bias = family_kernel_inputs(
         A.Plan(graph=g_field).family_instance, g_field,
@@ -1038,6 +1224,9 @@ def main() -> int:
     device_profile(torch, f"prefill b={b} prompt={s_len}",
                    lambda: TD.prefill(llama, params, prompt, s_len + n_new))
     del params
+    torch.cuda.empty_cache()
+    phase9(torch, np, A, g_field, th_field.numpy(), X_field, smi, gate,
+           launches, plain_cuda_calls, nmod, kmod)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

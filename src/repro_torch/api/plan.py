@@ -6,10 +6,13 @@ combination schemes, solver options and precision. It keys the session
 cache, and ``to_dict`` / ``from_dict`` use the reference package's schema
 exactly, so one plan dict drives both packages.
 
-Families and combiners are referenced by registry name. The streaming,
-fault, telemetry, structure and mesh options are carried in the schema but
-belong to later slices of the port: a plan that sets ``faults``,
-``telemetry``, ``structure`` or ``mesh`` raises ``NotImplementedError``.
+Families and combiners are referenced by registry name. The streaming and
+joint options (capacity, window, discount, ADMM budgets) and a
+:class:`~repro_torch.stream.faults.FaultPlan` configure the ``stream``,
+``simulate`` and ``joint`` verbs. The telemetry, structure and mesh options
+are carried in the schema but belong to later slices of the port: a plan
+that sets ``telemetry``, ``structure`` or ``mesh`` raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import numpy as np
 from ..core.combiners import get_combiner
 from ..core.families import get_family
 from ..core.graphs import Graph
+from ..stream.faults import FaultPlan
 
 #: mesh policies of the schema; only None runs in this slice
 MESH_POLICIES = (None, "host", "data")
@@ -29,8 +33,7 @@ _PRECISIONS = ("float32", "float64", "bfloat16")
 _ADMM_INITS = ("zero", "uniform", "diagonal")
 
 #: options carried in the schema whose verbs come in later slices
-_LATER = {"faults": "the streaming-simulator slice",
-          "telemetry": "the telemetry slice",
+_LATER = {"telemetry": "the telemetry slice",
           "structure": "the structure-learning slice",
           "mesh": "the multi-GPU slice"}
 
@@ -52,9 +55,10 @@ class Plan:
         ("float32", "float64", or "bfloat16": bf16 designs with float32
         solver state).
     capacity, admm_*, stream_window, stream_discount : configuration of the
-        streaming and joint verbs (later slices); validated as in the
-        reference.
-    mesh, faults, telemetry, structure : must be None in this slice.
+        streaming and joint verbs; validated as in the reference.
+    faults : optional :class:`~repro_torch.stream.faults.FaultPlan` (or its
+        ``to_dict`` form) for ``simulate``.
+    mesh, telemetry, structure : must be None in this slice.
     """
 
     graph: Graph
@@ -70,7 +74,7 @@ class Plan:
     admm_init: str = "diagonal"
     admm_newton_iters: int = 15
     admm_rho: float = 1.0
-    faults: Optional[object] = None
+    faults: Optional["FaultPlan"] = None
     stream_window: Optional[int] = None
     stream_discount: Optional[float] = None
     telemetry: Optional[object] = None
@@ -123,6 +127,14 @@ class Plan:
             raise ValueError(
                 f"stream_discount must be in (0.0, 1.0] (None disables "
                 f"forgetting), got {self.stream_discount!r}")
+        if self.faults is not None:
+            if isinstance(self.faults, dict):
+                object.__setattr__(self, "faults",
+                                   FaultPlan.from_dict(self.faults))
+            elif not isinstance(self.faults, FaultPlan):
+                raise TypeError(
+                    f"plan.faults must be a FaultPlan (or its to_dict "
+                    f"form), got {type(self.faults).__name__}")
         for name, where in _LATER.items():
             if getattr(self, name) is not None:
                 raise NotImplementedError(
@@ -168,7 +180,8 @@ class Plan:
             "admm_init": self.admm_init,
             "admm_newton_iters": self.admm_newton_iters,
             "admm_rho": self.admm_rho,
-            "faults": None,
+            "faults": (None if self.faults is None
+                       else self.faults.to_dict()),
             "stream_window": self.stream_window,
             "stream_discount": self.stream_discount,
             "telemetry": None,

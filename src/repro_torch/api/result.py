@@ -1,4 +1,5 @@
-"""Structured result of the estimation-plan API's ``fit`` verb."""
+"""Structured result of the estimation-plan API's ``fit`` and ``joint``
+verbs."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,19 +15,27 @@ from ..core.estimators import LocalFit
 class EstimateResult:
     """One estimation outcome, fully accounted.
 
-    mode            — "fit" (local fits + one-step consensus).
-    theta           — the headline flat estimate: the plan's first combiner.
+    mode            — "fit" (local fits + one-step consensus) or "joint"
+                      (ADMM joint MPLE).
+    theta           — the headline flat estimate: the plan's first
+                      combiner for ``fit``, the final ADMM iterate for
+                      ``joint``.
     combined        — per-scheme combined estimates, name -> flat theta.
-    fits            — per-node :class:`LocalFit` results.
+    fits            — per-node :class:`LocalFit` results (None when the
+                      verb never produced them, e.g. zero-init ADMM).
     n_samples       — rows of the sample matrix the verb consumed.
     score_norm      — ||grad pseudo-loglik(theta)|| over those samples.
     wall_s          — wall-clock of the verb, kernel build included.
     new_compiles    — kernel libraries this call built (0 once built).
     comm_scalars    — scalars a sensor network would transmit to realize
-                      each requested scheme, name -> count.
+                      each requested scheme, name -> count; ``joint``
+                      reports the K-round ADMM exchange as "admm".
+    trajectory      — (admm_iters + 1, n_params) consensus iterates
+                      (``joint`` only).
+    primal_residual — (admm_iters,) rms primal residuals (``joint`` only).
     compile_s       — wall seconds of the kernel build this call paid.
 
-    The reference's joint-verb and telemetry fields come with those slices.
+    The reference's telemetry field comes with the telemetry slice.
     """
 
     mode: str
@@ -38,6 +47,8 @@ class EstimateResult:
     wall_s: float
     new_compiles: int
     comm_scalars: Dict[str, int]
+    trajectory: Optional[np.ndarray] = None
+    primal_residual: Optional[np.ndarray] = None
     compile_s: float = 0.0
 
     def mse(self, theta_star: np.ndarray, free=None) -> float:
@@ -45,8 +56,10 @@ class EstimateResult:
         return _mse(self.theta, np.asarray(theta_star), free)
 
     def __repr__(self) -> str:
+        extras = ("" if self.trajectory is None
+                  else f", admm_iters={len(self.trajectory) - 1}")
         return (f"EstimateResult(mode={self.mode!r}, "
                 f"schemes={sorted(self.combined)}, n={self.n_samples}, "
                 f"score_norm={self.score_norm:.3e}, "
                 f"wall_s={self.wall_s:.3f}, "
-                f"new_compiles={self.new_compiles})")
+                f"new_compiles={self.new_compiles}{extras})")

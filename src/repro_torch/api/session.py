@@ -1,4 +1,4 @@
-"""Estimation sessions: one :class:`Plan` on one device -> the ``fit`` verb.
+"""Estimation sessions: one :class:`Plan` on one device -> four verbs.
 
 An :class:`EstimationSession` derives the graph's degree buckets, owner
 structure, per-node block layouts and fixed-coordinate vector once. Sessions
@@ -6,9 +6,16 @@ are cached per ``(plan, device)`` (``EstimationSession.for_plan`` /
 ``plan.session()``). The device is the CUDA card unless the caller names
 another: with no card and no device given, a session refuses to start.
 
-``fit(X)`` runs the per-node local CL fits through the batched engine, every
-requested one-step combiner, and the pseudo-score norm. ``stream``,
-``joint``, ``select`` and ``simulate`` belong to later slices of the port.
+* ``fit(X)``       — per-node local CL fits through the batched engine,
+                     every requested one-step combiner, the pseudo-score
+                     norm;
+* ``stream()``     — a :class:`~repro_torch.stream.StreamingEstimator`
+                     bound to the plan, its pool on the session's device;
+* ``simulate(pool)`` — a :class:`~repro_torch.stream.StreamSimulator`
+                     configured from the plan;
+* ``joint(X)``     — ADMM joint MPLE through the batched proximal engine.
+
+``select`` belongs to the structure-learning slice of the port.
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.admm import admm_mple_family
 from ..core.asymptotics import param_owners
-from ..core.batched import degree_buckets, fit_all_local_batched
+from ..core.batched import (degree_buckets, fit_all_local_batched,
+                            local_layout)
 from ..core.estimators import LocalFit
 from ..core.graphs import Graph
 from ..device import resolve_device
@@ -163,21 +172,72 @@ class EstimationSession:
             comm_scalars=self.one_step_comm(n))
 
     def stream(self, capacity: Optional[int] = None):
-        raise NotImplementedError(
-            "session.stream() comes with the streaming slice of the port")
+        """Streaming verb: a :class:`~repro_torch.stream.online.
+        StreamingEstimator` bound to this plan (family, fixed coordinates,
+        Newton budget, window, discount) with its pool on this session's
+        device."""
+        from ..stream.online import StreamingEstimator
+        return StreamingEstimator(
+            self.graph, include_singleton=self.plan.include_singleton,
+            theta_fixed=self.theta_fixed,
+            capacity=capacity or self.plan.capacity,
+            n_iter=self.plan.n_iter, family=self.family,
+            want_influence=self.want_influence,
+            window=self.plan.stream_window,
+            discount=self.plan.stream_discount, device=self.device)
 
-    def joint(self, X, sample_weight=None):
-        raise NotImplementedError(
-            "session.joint() comes with the joint-ADMM slice of the port")
+    def simulate(self, pool, **overrides):
+        """An event-driven :class:`~repro_torch.stream.simulator.
+        StreamSimulator` configured from this plan on this session's device
+        (see ``StreamSimulator.from_plan``); ``overrides`` win."""
+        from ..stream.simulator import StreamSimulator
+        overrides.setdefault("device", self.device)
+        return StreamSimulator.from_plan(self.plan, pool, **overrides)
+
+    def joint(self, X, sample_weight=None,
+              use_kernel: bool = True) -> EstimateResult:
+        """Joint verb: ADMM MPLE (Sec. 3.2) through the batched proximal
+        engine, initialized at the plan's ``admm_init`` one-step consensus
+        of local fits (``"zero"`` skips them). Every prox Newton iteration
+        takes one Newton-kernel launch on the card; the score norm is one
+        score-kernel launch. ``use_kernel=False`` asks for the plain
+        versions."""
+        t0 = time.perf_counter()
+        b0, s0 = LIBRARIES.builds, LIBRARIES.build_s
+        plan = self.plan
+        Xt = self._as_samples(X)
+        n = int(Xt.shape[0])
+        sw = (None if sample_weight is None
+              else _tensor(sample_weight).to(self.device))
+        fits = None
+        if plan.admm_init != "zero":
+            fits = self.fit_local(Xt, sample_weight=sw, want_influence=False,
+                                  use_kernel=use_kernel)
+        res = admm_mple_family(
+            self.graph, Xt, n_iters=plan.admm_iters, init=plan.admm_init,
+            fits=fits, include_singleton=plan.include_singleton,
+            theta_fixed=self.theta_fixed,
+            newton_iters=plan.admm_newton_iters, family=self.family,
+            sample_weight=sw, rho0=plan.admm_rho, use_kernel=use_kernel)
+        theta = res.trajectory[-1]
+        score = self._score_norm(theta, Xt, n, use_kernel=use_kernel)
+        # each round every node sends its local vector and gets theta_bar
+        _, param = local_layout(self.graph, self.family,
+                                plan.include_singleton)
+        comm = plan.admm_iters * 2 * len(param)
+        return EstimateResult(
+            mode="joint", theta=theta, combined={"admm": theta}, fits=fits,
+            n_samples=n, score_norm=score,
+            wall_s=time.perf_counter() - t0,
+            compile_s=LIBRARIES.build_s - s0,
+            new_compiles=LIBRARIES.builds - b0,
+            comm_scalars={"admm": comm},
+            trajectory=res.trajectory, primal_residual=res.primal_residual)
 
     def select(self, X, spec=None):
         raise NotImplementedError(
             "session.select() comes with the structure-learning slice of "
             "the port")
-
-    def simulate(self, pool, **overrides):
-        raise NotImplementedError(
-            "session.simulate() comes with the streaming slice of the port")
 
     def __repr__(self) -> str:
         return (f"EstimationSession(family={self.plan.family!r}, "

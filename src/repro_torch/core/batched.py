@@ -250,6 +250,80 @@ def _channel_ops(family, Zb, base, xi, sw, weighted, denom,
         newton_stats
 
 
+def _damped_newton(W, newton_stats, objective, denom, curvature_shifts,
+                   n_iter: int, tol: float, max_step: float, guarded: bool,
+                   grad_shift=None):
+    """The bucket-wide damped Newton loop of the fit and proximal solvers.
+
+    Each iteration takes (g, K) from ``newton_stats`` (one kernel launch on
+    the card), forms ``g / denom`` (then ``grad_shift(g, W)``) and
+    ``-K / denom`` minus each of ``curvature_shifts`` in turn, and steps
+    along the clipped Newton direction; with ``guarded``, an untrusted
+    direction is replaced by a backtracking search on ``objective``. The
+    reference's while_loop becomes a Python loop whose stop test reads one
+    device scalar (the step's inf-norm) per iteration. Returns (W, iters).
+    """
+    it = 0
+    delta = float("inf")
+    while it < n_iter and delta > tol:
+        g_raw, K_raw = newton_stats(W)           # fused score + Gram
+        # the kernel returns float32 statistics; a float64 solver state
+        # promotes them explicitly, as on the TPU
+        g = g_raw.to(W.dtype) / denom[:, None]
+        if grad_shift is not None:
+            g = grad_shift(g, W)
+        H = -K_raw.to(W.dtype) / denom[:, None, None]
+        for shift in curvature_shifts:
+            H = H - shift
+        dirn = _gauss_jordan_solve(H, g[..., None])[..., 0]  # (k, dC)
+        # an untrusted direction: non-finite (curvature underflow at a
+        # saturated point) or clipped (outside Newton's trust region); NaN
+        # directions are zeroed so they cannot poison the bucket-wide stop
+        finite = torch.all(torch.isfinite(dirn), dim=1, keepdim=True)
+        dirn = torch.where(finite, dirn, torch.zeros_like(dirn))
+        norm = torch.linalg.norm(dirn, dim=1, keepdim=True)
+        untrusted = (norm > max_step) | ~finite
+        dirn = torch.where(norm > max_step,
+                           dirn * (max_step / (norm + 1e-30)), dirn)
+        if guarded and bool(torch.any(untrusted)):
+            # guard an untrusted direction with a per-node backtracking
+            # search over Newton + gradient candidates
+            step = _backtrack_step(objective, W, dirn, g, max_step)
+        else:
+            step = dirn
+        delta = float(torch.max(torch.abs(step)))
+        W = W - step
+        it += 1
+    return W, it
+
+
+def _bucket_system(family, X, nodes, nbrs, mask, offsets, sw,
+                   include_singleton: bool, weighted: bool,
+                   use_kernel: bool):
+    """The bucket design and what the fit and proximal solvers derive from
+    it: the :func:`_channel_ops` closures, the identity, the
+    padded-coordinate diagonal and the per-node weight totals ``denom``,
+    all in the solver type."""
+    n = X.shape[0]
+    Zb, xi, base, cmask = _bucket_design(family, X, nodes, nbrs, mask,
+                                         offsets, include_singleton)
+    k, C, d, _ = Zb.shape
+    cdtype = _solver_dtype(Zb.dtype)
+    eye = torch.eye(d * C, dtype=cdtype, device=Zb.device)
+    # -1 on padded diagonals keeps the (exactly block-diagonal) system
+    # uniformly negative definite without touching the real block's
+    # Newton direction.
+    cflat = _flat_coord_mask(cmask, C).to(cdtype)
+    pad_diag = (1.0 - cflat)[:, :, None] * eye[None, :, :]
+    if weighted:
+        sw = sw.to(cdtype)
+        denom = torch.clamp(torch.sum(sw, dim=1), min=1.0)   # (k,)
+    else:
+        denom = torch.full((k,), float(n), dtype=cdtype, device=Zb.device)
+    ops = _channel_ops(family, Zb, base, xi, sw, weighted, denom, use_kernel)
+    return ops, eye, pad_diag, denom
+
+
 def _solve_bucket_impl(X, nodes, nbrs, mask, offsets, W0, sw,
                        include_singleton: bool, n_iter: int,
                        weighted: bool = False, guarded: bool = False,
@@ -270,60 +344,15 @@ def _solve_bucket_impl(X, nodes, nbrs, mask, offsets, W0, sw,
     carry a ``-1`` placeholder diagonal in the Newton system. ``I`` is the
     (k,) Newton-iteration count (bucket-wide, broadcast per node).
     """
-    n = X.shape[0]
-    Zb, xi, base, cmask = _bucket_design(family, X, nodes, nbrs, mask,
-                                         offsets, include_singleton)
-    k, C, d, _ = Zb.shape
-    dC = d * C
-    cdtype = _solver_dtype(Zb.dtype)
-    dev = Zb.device
-    W = W0.to(cdtype)
-    eye = torch.eye(dC, dtype=cdtype, device=dev)
-    # -1 on padded diagonals keeps the (exactly block-diagonal) system
-    # uniformly negative definite without touching the real block's
-    # Newton direction.
-    cflat = _flat_coord_mask(cmask, C).to(cdtype)
-    pad_diag = (1.0 - cflat)[:, :, None] * eye[None, :, :]
-    if weighted:
-        sw = sw.to(cdtype)
-        denom = torch.clamp(torch.sum(sw, dim=1), min=1.0)   # (k,)
-    else:
-        denom = torch.full((k,), float(n), dtype=cdtype, device=dev)
-
-    score_curvature, curvature_matrix, objective, score_matrix, \
-        newton_stats = _channel_ops(family, Zb, base, xi, sw, weighted, denom,
-                                    use_kernel)
-
-    # The reference's bucket-wide while_loop: a Python loop whose stop test
-    # reads one device scalar (the step's inf-norm) per iteration.
-    it = 0
-    delta = float("inf")
-    while it < n_iter and delta > tol:
-        g_raw, K_raw = newton_stats(W)           # fused score + Gram
-        # the kernel returns float32 statistics; a float64 solver state
-        # promotes them explicitly, as on the TPU
-        g = g_raw.to(cdtype) / denom[:, None]
-        H = -K_raw.to(cdtype) / denom[:, None, None] \
-            - ridge * eye[None, :, :] - pad_diag
-        dirn = _gauss_jordan_solve(H, g[..., None])[..., 0]  # (k, dC)
-        # an untrusted direction: non-finite (curvature underflow at a
-        # saturated point) or clipped (outside Newton's trust region); NaN
-        # directions are zeroed so they cannot poison the bucket-wide stop
-        finite = torch.all(torch.isfinite(dirn), dim=1, keepdim=True)
-        dirn = torch.where(finite, dirn, torch.zeros_like(dirn))
-        norm = torch.linalg.norm(dirn, dim=1, keepdim=True)
-        untrusted = (norm > max_step) | ~finite
-        dirn = torch.where(norm > max_step,
-                           dirn * (max_step / (norm + 1e-30)), dirn)
-        if guarded and bool(torch.any(untrusted)):
-            # warm starts only: guard an untrusted direction with a per-node
-            # backtracking search over Newton + gradient candidates
-            step = _backtrack_step(objective, W, dirn, g, max_step)
-        else:
-            step = dirn
-        delta = float(torch.max(torch.abs(step)))
-        W = W - step
-        it += 1
+    (score_curvature, curvature_matrix, objective, score_matrix,
+     newton_stats), eye, pad_diag, denom = _bucket_system(
+        family, X, nodes, nbrs, mask, offsets, sw, include_singleton,
+        weighted, use_kernel)
+    W = W0.to(eye.dtype)
+    W, it = _damped_newton(W, newton_stats, objective, denom,
+                           (ridge * eye[None, :, :], pad_diag), n_iter, tol,
+                           max_step, guarded)
+    k, dC = W.shape
     I = torch.full((k,), it, dtype=torch.int32)
 
     # sandwich diagnostics at W_hat (closed forms; no autodiff). Under 0/1
@@ -340,7 +369,7 @@ def _solve_bucket_impl(X, nodes, nbrs, mask, offsets, W0, sw,
         S = G.transpose(1, 2) @ Hinv.transpose(1, 2)         # (k, n, dC)
     else:
         # only the Linear-Opt combiner reads the per-sample influence stack
-        S = torch.zeros((k, 0, dC), dtype=cdtype, device=dev)
+        S = torch.zeros((k, 0, dC), dtype=W.dtype, device=W.device)
     return W, H, J, V, S, I
 
 
@@ -412,6 +441,7 @@ def fit_all_local_batched(graph: Graph, X: torch.Tensor,
     n = X.shape[0]
     lead = 1 if include_singleton else 0
     cdtype = _solver_dtype(X.dtype)
+    off, param = local_layout(graph, family, include_singleton)
 
     out: List[Optional[LocalFit]] = [None] * graph.p
     for b in degree_buckets(graph):
@@ -435,8 +465,152 @@ def fit_all_local_batched(graph: Graph, X: torch.Tensor,
             i = int(i)
             di = (lead + int(degs[row])) * C
             out[i] = LocalFit(
-                i=i, beta=family.beta(graph, i, include_singleton),
+                i=i, beta=param[off[i]:off[i + 1]].tolist(),
                 theta=W[row, :di].copy(), H=H[row, :di, :di].copy(),
                 J=J[row, :di, :di].copy(), V=V[row, :di, :di].copy(),
                 s=S[row, :, :di].copy())
     return out  # type: ignore[return-value]
+
+
+# ------------------------------------------------------- proximal updates
+def _solve_bucket_prox_impl(X, nodes, nbrs, mask, offsets, W0, sw, lam, rho,
+                            tbar, include_singleton: bool, n_iter: int,
+                            weighted: bool = False, family=ISING,
+                            tol: float = 2e-6, ridge: float = 1e-8,
+                            max_step: float = 5.0, use_kernel: bool = True):
+    """ADMM primal update for a whole degree bucket.
+
+    Maximizes, per node,  ``l^i(w) - lam'w - sum_a rho_a (w_a - tbar_a)^2/2``
+    with the fit solver's Newton machinery: the prox terms only shift the
+    gradient by ``-lam - rho*(w - tbar)`` and the Hessian by
+    ``-diag(rho)``, so the bucket stays uniformly negative definite, and
+    each iteration takes its (g, K) from the same ``newton_stats`` hook
+    (one Newton-kernel launch on the card). lam, rho, tbar: (k, d*C) with
+    zeros on padded coordinates. Returns W.
+    """
+    (_, _, avg_loglik, _, newton_stats), eye, pad_diag, denom = \
+        _bucket_system(family, X, nodes, nbrs, mask, offsets, sw,
+                       include_singleton, weighted, use_kernel)
+    W = W0.to(eye.dtype)
+    lam, rho, tbar = (t.to(eye.dtype) for t in (lam, rho, tbar))
+    rho_diag = rho[:, :, None] * eye[None, :, :]
+
+    def objective(Ws):
+        # (c, k): penalized criterion for a stack of candidate points
+        pen = (lam[None] * Ws).sum(dim=2) \
+            + 0.5 * (rho[None] * (Ws - tbar[None]) ** 2).sum(dim=2)
+        return avg_loglik(Ws) - pen
+
+    W, _ = _damped_newton(
+        W, newton_stats, objective, denom,
+        (rho_diag, ridge * eye[None, :, :], pad_diag), n_iter, tol, max_step,
+        guarded=True, grad_shift=lambda g, W: g - lam - rho * (W - tbar))
+    return W
+
+
+@functools.lru_cache(maxsize=64)
+def local_layout(graph: Graph, family, include_singleton: bool):
+    """(off, param) of all nodes' local vectors laid end to end in node
+    order: node i holds slots ``off[i]:off[i + 1]``, and slot s estimates
+    flat parameter ``param[s]`` (``family.beta`` order). Cached per
+    (graph, family, include_singleton); read-only arrays."""
+    betas = [family.beta(graph, i, include_singleton)
+             for i in range(graph.p)]
+    off = np.concatenate([[0], np.cumsum([len(b) for b in betas])]
+                         ).astype(np.int64)
+    param = np.asarray([a for b in betas for a in b], dtype=np.int64)
+    off.setflags(write=False)
+    param.setflags(write=False)
+    return off, param
+
+
+def prox_update_flat(graph: Graph, X: torch.Tensor, bar: np.ndarray,
+                     lam: np.ndarray, rho: np.ndarray, start: np.ndarray,
+                     include_singleton: bool = True,
+                     theta_fixed: Optional[torch.Tensor] = None,
+                     sample_weight: Optional[torch.Tensor] = None,
+                     n_iter: int = 15, family=None,
+                     use_kernel: bool = True) -> np.ndarray:
+    """:func:`prox_update_batched` on the concatenated local vectors of
+    :func:`local_layout`: consensus views ``bar``, duals ``lam``,
+    penalties ``rho`` and Newton starts ``start``, each one flat array.
+    Returns the updated local vectors, flat, in the solver type. The
+    per-node inputs pass through float32, as in the reference engine."""
+    if family is None:
+        family = ISING
+    C = family.block_dim
+    dev = X.device
+    if theta_fixed is None:
+        theta_fixed = torch.zeros(family.n_params(graph), dtype=X.dtype,
+                                  device=dev)
+    node_tf = theta_fixed[: graph.p * C].reshape(graph.p, C)
+    off, _ = local_layout(graph, family, include_singleton)
+    n = X.shape[0]
+    lead = 1 if include_singleton else 0
+    cdtype = _solver_dtype(X.dtype)
+
+    out = np.zeros(off[-1], dtype=np.float64 if cdtype == torch.float64
+                   else np.float32)
+    for b in degree_buckets(graph):
+        dC = (b.deg_pad + lead) * C
+        degs = b.mask.sum(axis=1).astype(np.int64)
+        # (k, dC) gather of each row's local vector, zeros on padding
+        cols = np.arange(dC)[None, :]
+        valid = cols < ((lead + degs) * C)[:, None]
+        idx = np.where(valid, off[b.nodes][:, None] + cols, 0)
+
+        def rows(flat):
+            return torch.as_tensor(
+                np.where(valid, flat[idx], 0.0).astype(np.float32),
+                device=dev)
+        nodes = torch.as_tensor(b.nodes, dtype=torch.int64, device=dev)
+        W = _solve_bucket_prox_impl(
+            X, nodes, torch.as_tensor(b.nbrs, dtype=torch.int64, device=dev),
+            torch.as_tensor(b.mask, device=dev), node_tf[nodes], rows(start),
+            _bucket_weights(sample_weight, b.nodes, n), rows(lam), rows(rho),
+            rows(bar), include_singleton, n_iter,
+            sample_weight is not None, family, use_kernel=use_kernel)
+        out[idx[valid]] = W.cpu().numpy()[valid]
+    return out
+
+
+def prox_update_batched(graph: Graph, X: torch.Tensor,
+                        theta_bar, lambdas: Sequence[np.ndarray],
+                        rhos: Sequence[np.ndarray],
+                        thetas0: Optional[Sequence] = None,
+                        include_singleton: bool = True,
+                        theta_fixed: Optional[torch.Tensor] = None,
+                        sample_weight: Optional[torch.Tensor] = None,
+                        n_iter: int = 15, family=None,
+                        use_kernel: bool = True) -> List[np.ndarray]:
+    """Batched ADMM primal update across all nodes (one solve per bucket).
+
+    ``lambdas`` / ``rhos`` are length-p lists of ``beta_i``-length vectors;
+    ``theta_bar`` is the full flat consensus iterate or, for asynchronous
+    streaming where every node holds its own consensus view, a length-p
+    list of ``beta_i``-length vectors. ``thetas0`` are optional warm starts
+    (a node without one starts at its consensus view). ``sample_weight``,
+    ``family`` and ``use_kernel`` are as in
+    :func:`fit_all_local_batched`; ``X`` is an (n, p) tensor on the device
+    the solve runs on. Returns the updated per-node theta vectors (numpy,
+    in the solver type).
+    """
+    if family is None:
+        family = ISING
+    off, param = local_layout(graph, family, include_singleton)
+    if isinstance(theta_bar, (list, tuple)):
+        bar = np.concatenate([np.asarray(b, dtype=np.float64)
+                              for b in theta_bar])
+    else:
+        bar = np.asarray(theta_bar, dtype=np.float64)[param]
+    # warm starts where given; the consensus view elsewhere
+    start = bar.copy()
+    if thetas0 is not None:
+        for i, t0 in enumerate(thetas0):
+            if t0 is not None:
+                start[off[i]:off[i + 1]] = np.asarray(t0, dtype=np.float64)
+    out = prox_update_flat(
+        graph, X, bar, np.concatenate(lambdas), np.concatenate(rhos), start,
+        include_singleton, theta_fixed, sample_weight, n_iter, family,
+        use_kernel)
+    return np.split(out, off[1:-1])

@@ -1,5 +1,5 @@
-"""Carry plans, estimates and model parameters across from the reference
-package.
+"""Carry plans, estimates, fault plans, stream states and model parameters
+across from the reference package.
 
 The port keeps the reference's layouts by design, so these are checked
 identities: they validate what they are given and hand back the port's own
@@ -17,11 +17,51 @@ from .core.estimators import LocalFit
 from .device import resolve_device
 from .models.common import ArchConfig, ParamSpec
 from .models.transformer import abstract_params
+from .stream.faults import FaultPlan
 
 
 def plan_from_reference(d: dict) -> Plan:
     """The port's :class:`Plan` from the reference's ``plan.to_dict()``."""
     return Plan.from_dict(d)
+
+
+def fault_plan_from_reference(d: dict) -> FaultPlan:
+    """The port's :class:`FaultPlan` from the reference's
+    ``fault_plan.to_dict()`` (validated as the reference validates)."""
+    return FaultPlan.from_dict(d)
+
+
+def stream_state_from_reference(arrays: dict, meta: dict, target) -> None:
+    """Load the reference's ``StreamingEstimator.state_dict()`` or
+    ``StreamSimulator.state_dict()`` (numpy arrays and JSON meta) into the
+    port's ``target`` of the same kind, after checking it against the
+    target's configuration: the pool's p columns, the family's parameter
+    count, a capacity the target's configured capacity doubles to, and the
+    fitted nodes' ``beta`` layouts."""
+    est = getattr(target, "est", target)
+    pool = np.asarray(arrays["est/pool"])
+    if pool.ndim != 2 or pool.shape[1] != est.graph.p:
+        raise ValueError(f"pool has shape {pool.shape}; the target streams "
+                         f"p = {est.graph.p} columns")
+    cap, n = pool.shape[0], int(meta["n"])
+    if n > cap or cap < est.buffer.capacity \
+            or cap % est.buffer.capacity \
+            or (cap // est.buffer.capacity) & (cap // est.buffer.capacity - 1):
+        raise ValueError(f"pool capacity {cap} holding {n} rows is not the "
+                         f"target's capacity {est.buffer.capacity} doubled")
+    tf = np.asarray(arrays["est/theta_fixed"])
+    if tf.shape != (est.family.n_params(est.graph),):
+        raise ValueError(f"theta_fixed has shape {tf.shape}; family "
+                         f"{est.family.name!r} on this graph has "
+                         f"{est.family.n_params(est.graph)} params")
+    betas = meta.get("betas")
+    if betas is not None:
+        want = [est.family.beta(est.graph, i, est.include_singleton)
+                for i in range(est.graph.p)]
+        if [list(b) for b in betas] != want:
+            raise ValueError("the state's per-node beta layouts differ from "
+                             "the target's family and singleton policy")
+    target.load_state(arrays, meta)
 
 
 def theta_from_numpy(theta, plan: Plan, device=None) -> torch.Tensor:

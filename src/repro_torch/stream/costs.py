@@ -1,11 +1,15 @@
-"""Exact communication-cost accounting of the one-step combiners.
+"""Exact communication-cost accounting of the one-step combiners and ADMM.
 
 A one-step message carries, per shared parameter, the local estimate
 (1 scalar) plus, for weighted schemes, its variance weight (1 more);
 Linear-Opt's secondary round ships n influence samples per shared
+parameter; an ADMM round message carries the local estimate per shared
 parameter. The per-parameter sizes are read from the combiner registry.
 """
 from __future__ import annotations
+
+from ..core.asymptotics import param_owners
+from ..core.graphs import Graph
 
 
 def _registry_scalars() -> dict:
@@ -15,6 +19,11 @@ def _registry_scalars() -> dict:
     return {c.name: c.scalars_per_shared_param
             for c in registered_combiners()
             if c.scalars_per_shared_param is not None}
+
+
+#: import-time snapshot for the built-in schemes; ``one_step_message_
+#: scalars`` resolves through the live registry
+SCHEME_SCALARS_PER_PARAM = _registry_scalars()
 
 
 def one_step_message_scalars(n_shared: int, scheme: str) -> int:
@@ -48,3 +57,35 @@ def one_step_comm_by_scheme(shared_owner_slots: int, combiners, n: int) -> dict:
             cost += int(n) * int(shared_owner_slots)
         out[c.name] = cost
     return out
+
+
+def admm_message_scalars(n_shared: int) -> int:
+    """Scalars in one ADMM-round message covering n_shared params."""
+    return int(n_shared)
+
+
+def comm_costs(g: Graph, n: int, admm_iters: int) -> dict:
+    """Exact combinatorial scalar counts per sensor-network method.
+
+    one-step consensus    : each node sends estimate (+ weight) per shared
+                            param
+    Linear-Opt (Prop 4.6) : adds the secondary round shipping s^i_alpha
+                            samples
+    ADMM (K iters)        : K rounds of local-estimate exchange
+    centralized           : ship the raw dataset to a fusion center
+    """
+    owners = param_owners(g)
+    shared = [a for a, own in owners.items() if len(own) > 1]
+    beta_sizes = [len(g.beta(i)) for i in range(g.p)]
+    # estimates travel once per shared param per owner; weights double it
+    one_step = sum(
+        one_step_message_scalars(len(owners[a]), "uniform") for a in shared)
+    diag = sum(
+        one_step_message_scalars(len(owners[a]), "diagonal") for a in shared)
+    # Prop 4.6 secondary round: each node ships n influence samples per
+    # shared parameter it owns
+    linear_opt = diag + n * one_step
+    admm = admm_iters * 2 * sum(beta_sizes)      # send theta^i, get theta_bar
+    central = n * g.p                            # raw data to fusion center
+    return dict(one_step_linear=one_step, diagonal_or_max=diag,
+                linear_opt=linear_opt, admm=admm, centralized=central)

@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.api as TA  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
+import repro_torch.stream as TS  # noqa: E402
 from repro_torch.core import grid_graph, star_graph  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
@@ -451,3 +452,84 @@ def test_reduced_llama_on_the_card_matches_the_cpu(dev):
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("weights", ["prefix", "window discount"])
+@pytest.mark.parametrize("d,k,n", [(5, 333, 5007), (17, 37, 3001),
+                                   (5, 4096, 1001)])
+def test_weighted_newton_kernel_ragged_prox_shapes(dev, d, k, n, weights):
+    """The weighted Newton kernel at the shapes a stream refit and an ADMM
+    prox round give it: per-node ragged prefixes, optionally windowed and
+    discounted (weights that are not 0/1)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(k + n)
+    xi = torch.where(torch.rand((k, n), generator=gen, device=dev) < .5,
+                     1.0, -1.0)
+    Zb = torch.where(torch.rand((k, 1, d, n), generator=gen, device=dev)
+                     < .5, 1.0, -1.0)
+    Zb[:, :, 0] = 1.0
+    base = torch.zeros((k, 1, n), device=dev)
+    W = 0.1 * torch.randn((k, d), generator=gen, device=dev)
+    buf = TS.SampleBuffer(1, capacity=n, device=dev)
+    buf.append(torch.zeros((n, 1)))
+    counts = np.random.RandomState(k).randint(0, n + 1, size=k)
+    sw = (buf.prefix_masks(counts) if weights == "prefix"
+          else buf.window_weights(counts, window=n // 3, discount=0.999))
+    n0 = nmod.bucket_newton_stats.launches
+    got = nmod.bucket_newton_stats("ising", Zb, base, xi, W, sw)
+    again = nmod.bucket_newton_stats("ising", Zb, base, xi, W, sw)
+    want = nmod.bucket_newton_stats_ref("ising", Zb, base, xi, W, sw)
+    assert nmod.bucket_newton_stats.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(_rel(g, w) <= 1e-4 for g, w in zip(got, want))
+
+
+def _ising_rows(p, n, seed):
+    return np.where(np.random.RandomState(seed).rand(n, p) < .5, 1.0, -1.0)
+
+
+@pytest.mark.parametrize("window", [None, 700])
+def test_stream_refit_kernel_matches_plain(dev, window):
+    g = grid_graph(6, 6)
+    X = _ising_rows(g.p, 3000, 1)
+    plan = TA.Plan(graph=g, stream_window=window)
+    kern, plain = (plan.session().stream(capacity=512) for _ in range(2))
+    counts = 1500 + (np.arange(g.p) * 97) % 1500
+    for est in (kern, plain):
+        assert est.device.type == "cuda"
+        est.ingest(X[:1000])
+        est.extend_pool(X[1000:])
+        est.advance(counts)
+    n0 = nmod.bucket_newton_stats.launches
+    got = kern.refit()
+    assert nmod.bucket_newton_stats.launches > n0
+    n0 = nmod.bucket_newton_stats.launches
+    want = plain.refit(use_kernel=False)
+    assert nmod.bucket_newton_stats.launches == n0
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.theta, b.theta, rtol=0, atol=1e-4)
+    theta = np.zeros(plan.family_instance.n_params(g))
+    s0 = kmod.cl_score_channels.launches
+    assert abs(kern.score_norm(theta) - plain.score_norm(
+        theta, use_kernel=False)) <= 1e-4 * plain.score_norm(
+            theta, use_kernel=False)
+    assert kmod.cl_score_channels.launches == s0 + 1
+
+
+@pytest.mark.parametrize("family", sorted(KINDS))
+def test_joint_kernel_matches_plain(dev, family):
+    g = star_graph(6) if family == "potts" else grid_graph(4, 4)
+    rng = np.random.RandomState(2)
+    X = rng.randint(0, 3, size=(900, g.p)).astype(np.float64)
+    if family == "ising":
+        X = np.where(X > 0, 1.0, -1.0)
+    elif family == "gaussian":
+        X = rng.randn(900, g.p)
+    sess = TA.Plan(graph=g, family=family, admm_iters=8).session()
+    n0 = nmod.bucket_newton_stats.launches
+    res = sess.joint(X)
+    assert nmod.bucket_newton_stats.launches - n0 >= 8 * sess.n_buckets
+    plain = sess.joint(X, use_kernel=False)
+    np.testing.assert_allclose(res.trajectory, plain.trajectory, rtol=0,
+                               atol=1e-4)
+    assert res.primal_residual[-1] < res.primal_residual[0]

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro_torch.api as TA  # noqa: E402
+import repro_torch.stream as TS  # noqa: E402
 from repro_torch.core import Graph, grid_graph  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
@@ -45,8 +46,16 @@ def test_every_module_imports_and_fits_without_jax_or_reference():
         import repro_torch.api as A
         from repro_torch.core import grid_graph
         X = np.where(np.random.RandomState(0).rand(64, 4) < 0.5, 1.0, -1.0)
-        res = A.Plan(graph=grid_graph(2, 2)).session(device="cpu").fit(X)
+        sess = A.Plan(graph=grid_graph(2, 2)).session(device="cpu")
+        res = sess.fit(X)
         assert np.all(np.isfinite(res.theta)) and res.theta.shape == (8,)
+        est = sess.stream(capacity=16)
+        est.ingest(X[:40])
+        assert len(est.refit()) == 4 and np.isfinite(est.score_norm(res.theta))
+        joint = sess.joint(X)
+        assert np.all(np.isfinite(joint.trajectory))
+        sim = sess.simulate(np.tile(X, (4, 1)), estimator="admm")
+        assert np.all(np.isfinite(sim.run(2).theta))
         loaded = [m for m in sys.modules if m.startswith(("jax.", "repro."))]
         assert not loaded, loaded
         print("ok")
@@ -84,19 +93,67 @@ def test_session_cache_is_keyed_by_plan_and_device():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mesh", "host"), ("faults", {"crash": []}), ("telemetry", {}),
-    ("structure", {})])
+    ("mesh", "host"), ("telemetry", {}), ("structure", {})])
 def test_later_slice_plan_options_refuse(field, value):
     with pytest.raises(NotImplementedError, match=field):
         TA.Plan(graph=grid_graph(2, 2), **{field: value})
 
 
-@pytest.mark.parametrize("verb", ["stream", "joint", "select", "simulate"])
+@pytest.mark.parametrize("verb", ["select"])
 def test_later_slice_verbs_refuse(verb):
     sess = TA.Plan(graph=grid_graph(2, 2)).session(device="cpu")
-    args = () if verb == "stream" else (np.zeros((4, 4)),)
     with pytest.raises(NotImplementedError):
-        getattr(sess, verb)(*args)
+        getattr(sess, verb)(np.zeros((4, 4)))
+
+
+_DRIFT = TS.FaultPlan(drift=(TS.DriftSpec(at=2),))
+
+
+@pytest.mark.parametrize("case", [
+    "drift in simulate", "drift plan in StreamSimulator",
+    "telemetry in simulate", "telemetry in StreamSimulator",
+    "mesh in StreamSimulator", "mesh in simulate"])
+def test_later_slice_stream_options_refuse(case):
+    """Drift needs the exact samplers, telemetry and mesh their slices: the
+    streaming verbs refuse them and name what they wait for."""
+    graph = grid_graph(2, 2)
+    pool = np.ones((64, 4))
+    theta = np.zeros(8)
+    sess = TA.Plan(graph=graph).session(device="cpu")
+    raises = {
+        "drift in simulate": (
+            NotImplementedError, "sampler slice",
+            lambda: TA.Plan(graph=graph, faults=_DRIFT).session(
+                device="cpu").simulate(pool, theta_star=theta)),
+        "drift plan in StreamSimulator": (
+            NotImplementedError, "sampler slice",
+            lambda: TS.StreamSimulator(graph, pool, faults=_DRIFT,
+                                       theta_star=theta, device="cpu")),
+        "telemetry in simulate": (
+            NotImplementedError, "telemetry slice",
+            lambda: sess.simulate(pool, telemetry={})),
+        "telemetry in StreamSimulator": (
+            NotImplementedError, "telemetry slice",
+            lambda: TS.StreamSimulator(graph, pool, telemetry=object(),
+                                       device="cpu")),
+        "mesh in StreamSimulator": (
+            TypeError, "mesh",
+            lambda: TS.StreamSimulator(graph, pool, mesh="host",
+                                       device="cpu")),
+        "mesh in simulate": (
+            TypeError, "mesh", lambda: sess.simulate(pool, mesh="data")),
+    }
+    exc, match, call = raises[case]
+    with pytest.raises(exc, match=match):
+        call()
+
+
+def test_stream_entry_points_insist_on_a_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.StreamingEstimator(grid_graph(2, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TS.StreamSimulator(grid_graph(2, 2), np.ones((8, 4)))
 
 
 def test_unknown_names_raise_listing_registries():
