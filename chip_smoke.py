@@ -51,7 +51,24 @@ Phases:
      on a perfect network (equal to the global diagonal combine within
      1e-5) and streaming ADMM on a lossy one (its error falling); the Newton
      kernel launched in every refit and prox round, the score kernel in
-     every score norm, and no plain version on a CUDA tensor.
+     every score norm, and no plain version on a CUDA tensor;
+ 10. structure learning (session.select): at the reference's structure-bench
+     size (benchmarks/structure_bench.py: a 5 x 6 grid, couplings +-0.5
+     Ising and +-0.3 Gaussian, n = 2000, policy full, the default spec) F1
+     >= 0.95 cold and on fresh same-shape data, the kernel select against
+     the plain select (same support and selected lambda, EBIC within 1e-5),
+     the Newton kernel against its plain version at the candidate graph's
+     bucket, no library built by the second call; at the deployment scale
+     (the 64 x 64 grid's 16384 rows, Ising, policy knn with k = 8) the
+     Newton kernel against its plain version (and timed beside it and
+     torch.bmm) at each bucket of the candidate graph, screened as select
+     screens it, then cold and warm wall seconds at the default depth,
+     then, with the path cut to FIELD_SELECT_CUTS (printed on the lines),
+     the device's busy share of one profiled select, the bucket design
+     rebuild's share of its device time, and the kernel select against
+     the plain select (same support and selected lambda, EBIC within
+     1e-5); every Newton iteration of the dense fit and of every prox
+     round a Newton-kernel launch, and no plain version on a CUDA tensor.
 
 Samples are drawn here, seeded, by a chromatic Gibbs sweep written with
 neighbour lists in torch on the card; true parameters come from a seeded
@@ -93,6 +110,18 @@ GATE_SERVE = 1e-1
 CARD_RATES = (("H100 PCIe", 2.0e12, 51e12, 756e12),
               ("H100 NVL", 3.9e12, 60e12, 835e12),
               ("H100", 3.35e12, 67e12, 989e12))
+
+#: planted |coupling| per family of the reference's structure bench
+#: (benchmarks/structure_bench.py, BENCH_structure.json "config")
+STRUCTURE_COUPLING = {"ising": 0.5, "gaussian": 0.3}
+STRUCTURE_F1_FLOOR = 0.95
+#: kernel select against plain select on the card: EBIC, relative
+GATE_EBIC = 1e-5
+#: the deployment select's walls are taken at the default depth (12 lambdas
+#: x 40 rounds); only its profiled select and the kernel-against-plain select
+#: are cut in depth by these, printed on their lines: a profile of the
+#: default depth's 6000-odd launches took minutes to read back
+FIELD_SELECT_CUTS = {"n_lambdas": 4, "admm_rounds": 10}
 
 #: the first version of each redesigned kernel, by the tag its timing line
 #: prints (NVIDIA H100 80GB HBM3 at 700 W; PERF.md kernel table)
@@ -163,20 +192,25 @@ def device_ms(torch, fn, reps: int) -> float:
     """Mean device time per call of ``fn``: the summed durations of the
     kernels it launched, under torch.profiler. Unlike back-to-back CUDA
     events it leaves out the host's time between launches, which sets the
-    pace of a call whose kernels take a few microseconds."""
+    pace of a call whose kernels take a few microseconds. The calls are
+    traced in the profiler's second cycle, after a warm-up cycle of as many
+    (a trace's first kernel was lost at times); nan when the trace holds
+    fewer kernel events than calls, since every call launches at least
+    one."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA]
-    # nan, not 0, when the profiler returned no kernel events
-    return sum(us) / 1e3 / reps if us else float("nan")
+    return sum(us) / 1e3 / reps if len(us) >= reps else float("nan")
 
 
 # ---------------------------------------------------------------- sampling
@@ -417,6 +451,262 @@ def phase9(torch, np, A, graph, truth, X_field, smi, gate, launches,
     torch.cuda.empty_cache()
 
 
+def planted_structure(torch, np, graph, family, n, gen, device):
+    """The reference structure bench's planted model on ``graph``: zero
+    singletons, edge couplings of |STRUCTURE_COUPLING| with signs from
+    RandomState(7), sampled on the card (Ising by the chromatic Gibbs
+    sampler, Gaussian exactly from its precision matrix)."""
+    signs = np.where(np.random.RandomState(7).rand(graph.m) < 0.5, 1.0, -1.0)
+    theta = torch.zeros(graph.p + graph.m, dtype=torch.float64)
+    theta[graph.p:] = torch.as_tensor(STRUCTURE_COUPLING[family] * signs)
+    if family == "ising":
+        return gibbs_sample(torch, graph, "ising", theta, n, 150, gen,
+                            device)
+    prec = torch.eye(graph.p, dtype=torch.float64)
+    e = torch.as_tensor(graph.edges, dtype=torch.int64)
+    prec[e[:, 0], e[:, 1]] = -theta[graph.p:]
+    prec[e[:, 1], e[:, 0]] = -theta[graph.p:]
+    chol = torch.linalg.cholesky(torch.linalg.inv(prec)).to(device)
+    z = torch.randn((n, graph.p), generator=gen, device=device,
+                    dtype=torch.float64)
+    return (z @ chol.T).float().contiguous()
+
+
+def select_profile(torch, label: str, fn, bmod):
+    """One call of ``fn`` under torch.profiler: prints the device's busy
+    share and the share of its device time spent in the kernels that
+    ``core/batched.py::_bucket_design`` launched (the bucket design, rebuilt
+    in every prox round; the design builds are marked by a record_function
+    range around the function for this one call), and returns what ``fn``
+    returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    design = bmod._bucket_design
+
+    def traced(*args, **kwargs):
+        with record_function("bucket_design"):
+            return design(*args, **kwargs)
+
+    bmod._bucket_design = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        bmod._bucket_design = design
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "bucket_design"]
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in device):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    kernel_us = sum(e.time_range.elapsed_us() for e in device)
+    design_us = sum(e.device_time_total for e in events
+                    if e.name == "bucket_design"
+                    and e.device_type == DeviceType.CPU)
+    builds = sum(1 for e in events if e.name == "bucket_design"
+                 and e.device_type == DeviceType.CPU)
+    busy = busy_us / 1e6
+    print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}%, under the profiler); bucket design "
+          f"{design_us / 1e3:.1f} ms over {builds} builds = "
+          f"{100 * design_us / max(kernel_us, 1e-9):.1f}% of {kernel_us / 1e3:.1f}"
+          f" ms of device time", flush=True)
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    return out
+
+
+def phase10(torch, np, A, g_field, X_field, smi, gate, launches,
+            plain_cuda_calls, nmod, gen, dev, bucket_inputs, check_newton,
+            time_newton):
+    """Structure learning on the card: session.select through the Newton
+    kernel at the reference's structure-bench size and at the deployment
+    scale, and the Newton kernel against its plain version at the
+    deployment select's buckets (phase 3's helpers)."""
+    from repro_torch.core import Graph, batched as bmod
+    from repro_torch.core import grid_graph
+    from repro_torch.structure import candidate_graph
+    from repro_torch.structure import solver as ssolver
+
+    print(f"phase 10: structure learning (session.select) on the card "
+          f"({smi})", flush=True)
+    # every Newton iteration goes through the dispatch op; count the calls
+    # (all of them, and those inside prox rounds) and the prox rounds
+    calls = {"newton": 0, "prox_newton": 0, "prox_rounds": 0}
+    newton_op, prox = bmod.bucket_newton_stats_op, ssolver.prox_update_flat
+
+    def counted_op(*args, **kwargs):
+        calls["newton"] += 1
+        return newton_op(*args, **kwargs)
+
+    def counted_prox(*args, **kwargs):
+        calls["prox_rounds"] += 1
+        before = calls["newton"]
+        out = prox(*args, **kwargs)
+        calls["prox_newton"] += calls["newton"] - before
+        return out
+
+    bmod.bucket_newton_stats_op = counted_op
+    ssolver.prox_update_flat = counted_prox
+
+    def counted(fn):
+        """fn() with every count set to 0 just before and read just after:
+        (result, wall s, Newton launches, iterations, prox iterations, prox
+        rounds, plain calls on CUDA tensors)."""
+        nmod.bucket_newton_stats.launches = 0
+        plain_cuda_calls["n"] = 0
+        for key in calls:
+            calls[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl = nmod.bucket_newton_stats.launches
+        launches["newton"] += nl
+        return (out, wall, nl, calls["newton"], calls["prox_newton"],
+                calls["prox_rounds"], plain_cuda_calls["n"])
+
+    try:
+        # ---- the reference's structure bench: 5 x 6 grid, n = 2000, full
+        g = grid_graph(5, 6)
+        for family in ("ising", "gaussian"):
+            X = planted_structure(torch, np, g, family, 2000, gen, dev)
+            X2 = planted_structure(torch, np, g, family, 2000, gen, dev)
+            sess = A.Plan(graph=g, family=family, structure=A.StructureSpec(
+                policy="full")).session()
+            res, wall, nl, it, pit, rounds, pc = counted(
+                lambda: sess.select(X))
+            f1 = res.edge_metrics(g.edges)["f1"]
+            gate(f1 >= STRUCTURE_F1_FLOOR and nl == it and nl >= pit > 0
+                 and pit >= rounds and pc == 0,
+                 f"select {family} grid 5x6 n=2000 full ({len(res.candidate_edges)}"
+                 f" candidates, {len(res.lambdas)} lambdas, vote "
+                 f"{res.vote_rule}): F1 {f1:.3f}, |support| "
+                 f"{len(res.support)}/{g.m}; wall {wall:.3f} s; Newton "
+                 f"launches {nl} = iterations {it} (prox {pit} over {rounds} "
+                 f"ADMM rounds); plain calls on CUDA tensors {pc}")
+            t0 = time.perf_counter()
+            plain = sess.select(X, use_kernel=False)
+            torch.cuda.synchronize()
+            wall_p = time.perf_counter() - t0
+            eb = float(np.max(np.abs(res.ebic - plain.ebic)
+                              / np.abs(plain.ebic)))
+            gate(res.support == plain.support
+                 and res.lambda_selected == plain.lambda_selected
+                 and eb <= GATE_EBIC,
+                 f"select {family}: kernel vs plain: same support "
+                 f"{res.support == plain.support}, same lambda "
+                 f"{res.lambda_selected:.5g} / {plain.lambda_selected:.5g}, "
+                 f"EBIC rel {eb:.2e}; plain wall {wall_p:.3f} s")
+            _, cand = bucket_inputs(Graph(g.p, res.candidate_edges), family,
+                                    X, False)
+            for _, args in cand:
+                k, C, d, n = args[0].shape
+                tag = f"structure_bench_{family} bucket d={d} k={k} n={n}"
+                check_newton(tag, family, *args)
+                time_newton(tag, family, args, 50)
+            del cand
+            warm, wall_w, nl, it, _, _, pc = counted(lambda: sess.select(X2))
+            f1w = warm.edge_metrics(g.edges)["f1"]
+            gate(warm.new_compiles == 0 and warm.path_compiles == 0
+                 and f1w >= STRUCTURE_F1_FLOOR and nl == it and pc == 0,
+                 f"select {family} on fresh same-shape data: F1 {f1w:.3f}, "
+                 f"new_compiles {warm.new_compiles}, wall {wall_w:.3f} s, "
+                 f"Newton launches {nl} = iterations {it}")
+            del X, X2, sess, res, plain, warm
+
+        # ---- deployment scale: the 64 x 64 grid's rows, policy knn
+        spec = A.StructureSpec(policy="knn", knn_k=8)
+        sess = A.Plan(graph=g_field, structure=spec).session()
+        Xa, Xb = X_field[:16384], X_field[16384:]
+
+        # the Newton kernel at the candidate graph's own buckets (the wide
+        # regime at n = 16384, split sums included), against its plain
+        # version, and timed beside it; the candidates are screened as
+        # select screens them
+        g_cand = candidate_graph(spec, g_field.p, X=Xa.to(torch.float64),
+                                 family=sess.family)
+        buckets = ", ".join(f"d={b.deg_pad + 1} k={len(b.nodes)}"
+                            for b in bmod.degree_buckets(g_cand))
+        _, cand = bucket_inputs(g_cand, "ising", Xa, False)
+        for _, args in cand:
+            k, C, d, n = args[0].shape
+            tag = f"field_select bucket d={d} k={k} n={n}"
+            check_newton(tag, "ising", *args)
+            time_newton(tag, "ising", args, 10)
+        del cand
+        torch.cuda.empty_cache()
+
+        res, cold, nl, it, pit, rounds, pc = counted(lambda: sess.select(Xa))
+        theta_ok = all(np.all(np.isfinite(t)) for t in res.thetas) \
+            and np.all(np.isfinite(res.ebic))
+        truth_f1 = res.edge_metrics(g_field.edges)
+        gate(theta_ok and nl == it and nl >= pit > 0 and pit >= rounds
+             and pc == 0 and res.candidate_edges == g_cand.edges,
+             f"select field_ising 64x64 n=16384 knn k=8 (default depth: "
+             f"{spec.n_lambdas} lambdas x {spec.admm_rounds} rounds): "
+             f"{len(res.candidate_edges)} candidates (buckets {buckets}), "
+             f"{rounds} ADMM rounds; Newton launches {nl} = iterations {it} "
+             f"(prox {pit}); plain calls on CUDA tensors {pc}; candidates "
+             f"as screened above {res.candidate_edges == g_cand.edges}; F1 "
+             f"against "
+             f"the grid {truth_f1['f1']:.3f} (|support| {len(res.support)}, "
+             f"lambda {res.lambda_selected:.4g})")
+        warm, wall_w, nl, it, pit_w, rounds_w, pc = counted(
+            lambda: sess.select(Xb))
+        gate(warm.new_compiles == 0 and nl == it and pc == 0
+             and np.all(np.isfinite(warm.ebic)),
+             f"select field_ising on fresh same-shape data: new_compiles "
+             f"{warm.new_compiles}, Newton launches {nl} = iterations {it}")
+        print(f"  select field_ising wall (default depth, unprofiled): cold "
+              f"{cold:.3f} s ({rounds} ADMM rounds), warm {wall_w:.3f} s "
+              f"({rounds_w} ADMM rounds, {pit_w} prox Newton iterations); "
+              f"comm scalars {warm.comm_scalars}", flush=True)
+        del res, warm
+
+        # a profiled select, and the kernel select against the plain one,
+        # both cut in depth (printed): a profile of the default depth's
+        # launches takes minutes to read back
+        cut = A.StructureSpec(policy="knn", knn_k=8, **FIELD_SELECT_CUTS)
+        cuts = ", ".join(f"{k} {v}" for k, v in FIELD_SELECT_CUTS.items())
+        kern = select_profile(torch, f"select field_ising (cuts: {cuts})",
+                              lambda: sess.select(Xb, spec=cut), bmod)
+        t0 = time.perf_counter()
+        plain = sess.select(Xb, spec=cut, use_kernel=False)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+        eb = float(np.max(np.abs(kern.ebic - plain.ebic)
+                          / np.abs(plain.ebic)))
+        gate(kern.support == plain.support
+             and kern.lambda_selected == plain.lambda_selected
+             and eb <= GATE_EBIC,
+             f"select field_ising (cuts: {cuts}): kernel vs plain: same "
+             f"support {kern.support == plain.support} (|support| "
+             f"{len(kern.support)} / {len(plain.support)}), same lambda "
+             f"{kern.lambda_selected:.5g} / {plain.lambda_selected:.5g}, "
+             f"EBIC rel {eb:.2e}; plain wall {wall_p:.3f} s")
+        del sess, kern, plain
+    finally:
+        bmod.bucket_newton_stats_op = newton_op
+        ssolver.prox_update_flat = prox
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -608,9 +898,10 @@ def main() -> int:
     def score_cost(C, n, p, nnz):
         """Bytes and FP32 operations of the kernel's contract: the masked
         product counted by the nonzeros of A (its only needed work), the
-        full C x C Gram S = r^T F / n that the kernel writes; Theta is
-        read only at A's nonzeros."""
-        nbytes = 4 * (C * n * p + C * nnz + p * p + C * p + 2 * C * n * p
+        full C x C Gram S = r^T F / n that the kernel writes; Theta is read
+        once in full (a non-finite entry at a zero of A makes a column
+        NaN)."""
+        nbytes = 4 * (C * n * p + C * p * p + p * p + C * p + 2 * C * n * p
                       + C * C * p * p)
         nflop = 2 * C * n * nnz + 2 * C * C * n * p * p
         return nbytes, nflop
@@ -979,8 +1270,9 @@ def main() -> int:
                              for c in range(C)], reps)
         del csr, Ft
         nnz = int(mask.count_nonzero())
-        # F read, eta written, A and b read, Theta read at A's nonzeros
-        bms, by = bound_at(4 * (2 * C * n * p + p * p + C * p + C * nnz),
+        # F read, eta written, A, b and Theta read (all of Theta: a
+        # non-finite entry at a zero of A makes a column NaN)
+        bms, by = bound_at(4 * (2 * C * n * p + p * p + C * p + C * p * p),
                            2 * C * n * nnz, flops)
         dms = device_ms(torch, lambda: kmod.cl_logits(F, th, mask, bias),
                         reps)
@@ -1227,6 +1519,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase9(torch, np, A, g_field, th_field.numpy(), X_field, smi, gate,
            launches, plain_cuda_calls, nmod, kmod)
+    phase10(torch, np, A, g_field, X_field, smi, gate, launches,
+            plain_cuda_calls, nmod, gen, dev, bucket_inputs, check_newton,
+            time_newton)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

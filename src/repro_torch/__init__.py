@@ -2,7 +2,7 @@
 
 The JAX package ``repro`` is the reference; this package carries the same
 public API (``Plan(...).session()`` and its ``fit``, ``stream``,
-``simulate`` and ``joint`` verbs) on PyTorch, and the serving
+``simulate``, ``joint`` and ``select`` verbs) on PyTorch, and the serving
 path of the reference's dense GQA transformers (:mod:`repro_torch.models`,
 :mod:`repro_torch.configs`), with every TPU kernel rewritten as a CUDA
 kernel for Hopper (``csrc/``). It imports neither ``jax`` nor ``repro``.

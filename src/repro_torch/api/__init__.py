@@ -1,9 +1,12 @@
 """The estimation-plan API: a :class:`Plan` -> an :class:`EstimationSession`
 on one device -> ``fit`` or ``joint`` (an :class:`EstimateResult`),
-``stream`` (a streaming estimator) or ``simulate`` (a sensor-network
-simulator)."""
+``stream`` (a streaming estimator), ``simulate`` (a sensor-network
+simulator) or ``select`` (a :class:`StructureResult`, configured by a
+:class:`StructureSpec`)."""
+from ..structure import StructureResult, StructureSpec
 from .plan import MESH_POLICIES, Plan
 from .result import EstimateResult
 from .session import EstimationSession
 
-__all__ = ["Plan", "EstimationSession", "EstimateResult", "MESH_POLICIES"]
+__all__ = ["Plan", "EstimationSession", "EstimateResult", "MESH_POLICIES",
+           "StructureSpec", "StructureResult"]

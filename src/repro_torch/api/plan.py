@@ -9,9 +9,10 @@ exactly, so one plan dict drives both packages.
 Families and combiners are referenced by registry name. The streaming and
 joint options (capacity, window, discount, ADMM budgets) and a
 :class:`~repro_torch.stream.faults.FaultPlan` configure the ``stream``,
-``simulate`` and ``joint`` verbs. The telemetry, structure and mesh options
-are carried in the schema but belong to later slices of the port: a plan
-that sets ``telemetry``, ``structure`` or ``mesh`` raises
+``simulate`` and ``joint`` verbs, and a
+:class:`~repro_torch.structure.StructureSpec` the ``select`` verb. The
+telemetry and mesh options are carried in the schema but belong to later
+slices of the port: a plan that sets ``telemetry`` or ``mesh`` raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ from ..core.combiners import get_combiner
 from ..core.families import get_family
 from ..core.graphs import Graph
 from ..stream.faults import FaultPlan
+from ..structure.spec import StructureSpec
 
 #: mesh policies of the schema; only None runs in this slice
 MESH_POLICIES = (None, "host", "data")
@@ -34,7 +36,6 @@ _ADMM_INITS = ("zero", "uniform", "diagonal")
 
 #: options carried in the schema whose verbs come in later slices
 _LATER = {"telemetry": "the telemetry slice",
-          "structure": "the structure-learning slice",
           "mesh": "the multi-GPU slice"}
 
 
@@ -58,7 +59,9 @@ class Plan:
         streaming and joint verbs; validated as in the reference.
     faults : optional :class:`~repro_torch.stream.faults.FaultPlan` (or its
         ``to_dict`` form) for ``simulate``.
-    mesh, telemetry, structure : must be None in this slice.
+    structure : optional :class:`~repro_torch.structure.StructureSpec` (or
+        its ``to_dict`` form) configuring ``select``.
+    mesh, telemetry : must be None in this slice.
     """
 
     graph: Graph
@@ -78,7 +81,7 @@ class Plan:
     stream_window: Optional[int] = None
     stream_discount: Optional[float] = None
     telemetry: Optional[object] = None
-    structure: Optional[object] = None
+    structure: Optional[StructureSpec] = None
 
     def __post_init__(self):
         if not isinstance(self.graph, Graph):
@@ -135,6 +138,29 @@ class Plan:
                 raise TypeError(
                     f"plan.faults must be a FaultPlan (or its to_dict "
                     f"form), got {type(self.faults).__name__}")
+        if self.structure is not None:
+            if isinstance(self.structure, dict):
+                object.__setattr__(self, "structure",
+                                   StructureSpec.from_dict(self.structure))
+            elif not isinstance(self.structure, StructureSpec):
+                raise TypeError(
+                    f"plan.structure must be a StructureSpec (or its "
+                    f"to_dict form), got {type(self.structure).__name__}")
+            s = self.structure
+            # the one check the spec cannot run alone: k against this
+            # plan's node count
+            if s.policy == "knn" and s.knn_k >= self.graph.p:
+                raise ValueError(
+                    f"structure.knn_k must be < p (a node has at most "
+                    f"p-1 = {self.graph.p - 1} neighbors); got "
+                    f"knn_k={s.knn_k} with p={self.graph.p} — use policy "
+                    f"'full' to consider every pair")
+            if s.policy == "given":
+                for (a, b) in s.given_edges:
+                    if not (0 <= a < b < self.graph.p):
+                        raise ValueError(
+                            f"structure.given_edges entry ({a},{b}) is not "
+                            f"a valid i<j edge for p={self.graph.p}")
         for name, where in _LATER.items():
             if getattr(self, name) is not None:
                 raise NotImplementedError(
@@ -185,7 +211,8 @@ class Plan:
             "stream_window": self.stream_window,
             "stream_discount": self.stream_discount,
             "telemetry": None,
-            "structure": None,
+            "structure": (None if self.structure is None
+                          else self.structure.to_dict()),
         }
 
     @classmethod

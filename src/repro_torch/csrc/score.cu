@@ -18,7 +18,8 @@
 // Design: the TPU kernel kept a (bm, p) feature strip in VMEM so one pass
 // gave eta, r and S. At p in the thousands that strip does not fit in a
 // block's 227 KB of shared memory, and a dense product over A multiplies
-// mostly zeros, so the work is three kernels:
+// mostly zeros, so the work is three kernels (and, for inputs that are not
+// all finite, the (d) kernels below, between (b) and (c)):
 //  (a) mask_csc_kernel, a pre-pass over A (read once, coalesced along i):
 //      for each node tile of 32 columns, the union of its columns' nonzero
 //      rows in ascending order, and for each column its nonzero rows as
@@ -41,8 +42,24 @@
 //  (c) S[c,e] = r_c^T F_e through the Gram body (gram_body.cuh, shared with
 //      gram.cu), all tiles, samples split as the wrapper chose, partials
 //      summed in split order: deterministic without float atomics.
-// cl_logits is (a) and (b) with the epilogue writing eta only.
+// cl_logits is (a), (b) and (d) with the epilogue writing eta only.
 // Plain float32 FMA throughout, not TF32: the float32 parity gates need it.
+//
+// Non-finite inputs. The reference forms Theta*A first, so where a non-finite
+// Theta[c, j, i] or F[c, s, j] meets a zero of A[j, i] the product is NaN
+// (inf * 0) and so is eta[c, s, i]. A walk over all p rows (FULL, and the
+// dense walk over a union) multiplies by that zero and gets the NaN itself;
+// the sparse walk and the rows outside a tile's union never see it. So,
+// without FULL, (d) follows the masked product: nonfinite_scan_kernel reads
+// F and Theta once, bound by their bytes, and flags a non-finite value in
+// either; colbad_kernel (Theta flagged) finds the channels of each column
+// with a non-finite Theta at a zero of A; nonfinite_fixup_kernel (a flag
+// set) writes those NaNs, and the residuals there. Checks inside the masked
+// product itself cost it about as much as the scan (the product already
+// runs near the card's memory rate) and it stays as it was: with finite
+// inputs the last two kernels read the flags and return, and eta, r and S
+// are bitwise what they were without (d).
+#include <algorithm>
 #include <climits>
 
 #include <cuda_runtime.h>
@@ -83,6 +100,8 @@ struct MaskCsc {
   int* ucount;   // (tiles,): union size
   int* etotal;   // (tiles,): entries of the tile's columns
   int* nnz;      // (p,): entries of column i
+  int* colbad;   // (p,): bit c set when column i has a non-finite Theta[c] at a zero of A
+  int* flags;    // (2,): [0] F holds a non-finite value, [1] Theta does
 };
 
 inline int node_tiles(int p) { return (p + kNodeTile - 1) / kNodeTile; }
@@ -90,7 +109,7 @@ inline int node_tiles(int p) { return (p + kNodeTile - 1) / kNodeTile; }
 inline size_t masked_workspace_words(int C, int p) {
   if (p <= kFullRows) return 0;
   const size_t pp = (size_t)p * p, tiles = node_tiles(p);
-  return (size_t)C * pp + pp + tiles * p + 2 * tiles + p;
+  return (size_t)C * pp + pp + tiles * p + 2 * tiles + 2 * (size_t)p + 2;
 }
 
 inline MaskCsc carve(void* work, int C, int p) {
@@ -107,6 +126,10 @@ inline MaskCsc carve(void* work, int C, int p) {
   w.etotal = q;
   q += tiles;
   w.nnz = q;
+  q += p;
+  w.colbad = q;
+  q += p;
+  w.flags = q;
   return w;
 }
 
@@ -117,7 +140,8 @@ inline MaskCsc carve(void* work, int C, int p) {
 // identically in every warp's registers) plus the rank of the row within the
 // warp's bit mask. The scan stores each entry's row j in its value slot; the
 // values Theta[c, j, i] * A[j, i] follow in a second pass shared by all warps,
-// with many loads in flight, so the scan never waits on Theta.
+// with many loads in flight, so the scan never waits on Theta. Block 0 also
+// clears the non-finite flags.
 __global__ void __launch_bounds__(kPreThreads)
 mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta, int C, int p,
                 MaskCsc ws) {
@@ -132,6 +156,7 @@ mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta,
   const size_t pp = (size_t)p * p;
   int* urows = ws.urows + (size_t)tile * p;
   int ubase = 0, cbase = 0;
+  if (tile == 0 && threadIdx.x < 2) ws.flags[threadIdx.x] = 0;
   float m[kPreRows];
 #pragma unroll
   for (int q = 0; q < kPreRows; ++q) {
@@ -218,6 +243,11 @@ mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta,
 }
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// inf or NaN: the exponent bits all set
+__device__ __forceinline__ bool nonfinite(float x) {
+  return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
+}
 
 __device__ __forceinline__ void fma16(float (&acc)[kThreadSamples], const float* f, float v) {
 #pragma unroll
@@ -321,9 +351,11 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
       const size_t at = ok ? (size_t)jv[q] * p + i : 0;
       const float mk = ok ? mask[at] : 0.0f;
 #pragma unroll
+      // at a zero of A a finite Theta gives +-0, which leaves every sum
+      // bitwise as it was; a non-finite one gives the reference's NaN
       for (int c = 0; c < C; ++c) {
         const float t = ok ? theta[c * pp + at] : 0.0f;
-        vr[c][q] = mk != 0.0f ? t * mk : 0.0f;
+        vr[c][q] = t * mk;
       }
     }
   };
@@ -431,6 +463,115 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
   }
 }
 
+constexpr int kFixThreads = 256;
+constexpr int kFixBlocks = 4 * 132;   // four per SM of an H100
+constexpr int kFixList = 1024;        // non-finite entries of a row of F held at once
+
+// Sets *flag when any of a[0 .. count) is not finite; float4 loads, four in
+// flight a thread, where a is 16-byte aligned.
+__device__ __forceinline__ void flag_nonfinite(const float* __restrict__ a, size_t count,
+                                               int* flag) {
+  const size_t tid = blockIdx.x * (size_t)kFixThreads + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * kFixThreads;
+  bool bad = false;
+  size_t head = 0;
+  if (reinterpret_cast<size_t>(a) % 16 == 0) {
+    const float4* a4 = reinterpret_cast<const float4*>(a);
+    const size_t n4 = count / 4;
+    auto nf4 = [](float4 v) {
+      return nonfinite(v.x) | nonfinite(v.y) | nonfinite(v.z) | nonfinite(v.w);
+    };
+    size_t k = tid;
+    for (; k + 3 * stride < n4; k += 4 * stride) {
+      const float4 v0 = a4[k], v1 = a4[k + stride], v2 = a4[k + 2 * stride],
+                   v3 = a4[k + 3 * stride];
+      bad |= nf4(v0) | nf4(v1) | nf4(v2) | nf4(v3);
+    }
+    for (; k < n4; k += stride) bad |= nf4(a4[k]);
+    head = n4 * 4;
+  }
+  for (size_t k = head + tid; k < count; k += stride) bad |= nonfinite(a[k]);
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+}
+
+// (d) flags[0] when F holds a non-finite value, flags[1] when Theta does.
+__global__ void __launch_bounds__(kFixThreads)
+nonfinite_scan_kernel(const float* __restrict__ F, size_t nf, const float* __restrict__ theta,
+                      size_t nt, MaskCsc ws) {
+  flag_nonfinite(F, nf, ws.flags);
+  flag_nonfinite(theta, nt, ws.flags + 1);
+}
+
+// (d) When Theta is flagged: colbad[i] gets bit c when some zero of A[:, i]
+// meets a non-finite Theta[c, :, i]. One thread per column, rows in order.
+// Otherwise it returns at once.
+__global__ void __launch_bounds__(kFixThreads)
+colbad_kernel(const float* __restrict__ theta, const float* __restrict__ mask, MaskCsc ws, int C,
+              int p) {
+  if (!ws.flags[1]) return;
+  const int i = blockIdx.x * kFixThreads + threadIdx.x;
+  if (i >= p) return;
+  const size_t pp = (size_t)p * p;
+  int bits = 0;
+  for (int j = 0; j < p; ++j) {
+    if (mask[(size_t)j * p + i] != 0.0f) continue;
+    for (int c = 0; c < C; ++c)
+      if (nonfinite(theta[c * pp + (size_t)j * p + i])) bits |= 1 << c;
+  }
+  ws.colbad[i] = bits;
+}
+
+// (d) When a flag is set: eta[c, s, i] = NaN where a zero of A[:, i] meets
+// a non-finite Theta[c, :, i] (colbad) or a non-finite F[c, s, :], and the
+// residuals there follow (the Potts softmax takes every channel of the
+// node). One row (c, s) of F per block step: its non-finite columns are
+// listed in shared memory, then each thread takes columns i. With no flag
+// set every block returns after reading the flags.
+template <int KIND, int C>
+__global__ void __launch_bounds__(kFixThreads)
+nonfinite_fixup_kernel(const float* __restrict__ F, const float* __restrict__ mask, MaskCsc ws,
+                       float* __restrict__ eta, float* __restrict__ r, int n, int p) {
+  __shared__ int s_list[kFixList];
+  __shared__ int s_cnt;
+  const bool fbad = ws.flags[0] != 0, tbad = ws.flags[1] != 0;
+  if (!fbad && !tbad) return;
+  const size_t np = (size_t)n * p;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int row = blockIdx.x; row < C * n; row += gridDim.x) {
+    const int c = row / n, s = row % n;
+    const float* f = F + c * np + (size_t)s * p;
+    if (threadIdx.x == 0) s_cnt = 0;
+    __syncthreads();
+    if (fbad) {
+      for (int j = threadIdx.x; j < p; j += kFixThreads) {
+        if (nonfinite(f[j])) {
+          const int at = atomicAdd(&s_cnt, 1);
+          if (at < kFixList) s_list[at] = j;
+        }
+      }
+    }
+    __syncthreads();
+    const int cnt = s_cnt;
+    for (int i = threadIdx.x; i < p; i += kFixThreads) {
+      bool bad = tbad && ((ws.colbad[i] >> c) & 1);
+      if (cnt <= kFixList) {
+        for (int e = 0; e < cnt && !bad; ++e) bad = mask[(size_t)s_list[e] * p + i] == 0.0f;
+      } else {   // more than the list holds: walk the row
+        for (int j = 0; j < p && !bad; ++j) bad = nonfinite(f[j]) && mask[(size_t)j * p + i] == 0.0f;
+      }
+      if (!bad) continue;
+      const size_t off = (size_t)s * p + i;
+      eta[c * np + off] = nan;
+      if (KIND == kPotts) {
+        for (int e = 0; e < C; ++e) r[e * np + off] = nan;
+      } else if (KIND != kLogits) {
+        r[off] = nan;
+      }
+    }
+    __syncthreads();   // s_cnt and s_list are rewritten for the next row
+  }
+}
+
 // The pre-pass, then the masked product with its epilogue.
 template <int KIND, int C>
 cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
@@ -451,10 +592,22 @@ cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
   }
   const MaskCsc ws = carve(work, C, p);
   mask_csc_kernel<<<node_tiles(p), kPreThreads, 0, stream>>>(mask, theta, C, p, ws);
-  const cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   masked_logits_kernel<KIND, C, false><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
       F, theta, mask, bias, ws, eta, r, n, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nonfinite_scan_kernel<<<kFixBlocks, kFixThreads, 0, stream>>>(
+      F, (size_t)C * n * p, theta, (size_t)C * p * p, ws);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  colbad_kernel<<<(p + kFixThreads - 1) / kFixThreads, kFixThreads, 0, stream>>>(theta, mask,
+                                                                                 ws, C, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  nonfinite_fixup_kernel<KIND, C><<<std::min(C * n, kFixBlocks), kFixThreads, 0, stream>>>(
+      F, mask, ws, eta, r, n, p);
   return cudaGetLastError();
 }
 
@@ -482,8 +635,9 @@ extern "C" {
 int repro_score_max_channels() { return 5; }
 
 // 4-byte words of the workspace the masked product's pre-pass fills for C
-// channels and p nodes (worst case: p entries in every column; none when
-// p <= kFullRows, where there is no pre-pass and work may be null).
+// channels and p nodes (worst case: p entries in every column), with the
+// non-finite flags; none when p <= kFullRows, where there is no pre-pass and
+// work may be null.
 size_t repro_masked_workspace_words(int C, int p) { return masked_workspace_words(C, p); }
 
 // kind: 0 ising, 1 gaussian, 2 potts. All tensors float32, contiguous; work

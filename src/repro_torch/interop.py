@@ -21,7 +21,8 @@ from .stream.faults import FaultPlan
 
 
 def plan_from_reference(d: dict) -> Plan:
-    """The port's :class:`Plan` from the reference's ``plan.to_dict()``."""
+    """The port's :class:`Plan` from the reference's ``plan.to_dict()``,
+    its ``structure`` entry (a ``StructureSpec.to_dict()``) included."""
     return Plan.from_dict(d)
 
 

@@ -12,8 +12,11 @@ lists them by column, and the product walks those lists (or, for a tile of
 columns whose lists fill most of their rows, a dense walk over those rows;
 up to p = 128 there is no pre-pass and every tile walks all rows densely).
 With finite operands eta is bitwise what a dense product over all rows gives.
-Where a non-finite Theta or F meets a zero of the mask the plain version
-gives NaN (inf * 0); the kernel skips that term on a sparse tile.
+Where a non-finite Theta[c, j, i] or F[c, s, j] meets a zero of the mask at
+(j, i), eta[c, s, i] is NaN, as in the reference (Theta * A is formed first)
+and the plain version, and r and S follow from it: after the product a scan
+reads F and Theta once for non-finite values, and only when it finds one
+does a fix-up kernel write those NaNs.
 """
 from __future__ import annotations
 

@@ -4,7 +4,8 @@ A one-step message carries, per shared parameter, the local estimate
 (1 scalar) plus, for weighted schemes, its variance weight (1 more);
 Linear-Opt's secondary round ships n influence samples per shared
 parameter; an ADMM round message carries the local estimate per shared
-parameter. The per-parameter sizes are read from the combiner registry.
+parameter; a support-voting round ships each candidate edge's two endpoint
+votes. The per-parameter sizes are read from the combiner registry.
 """
 from __future__ import annotations
 
@@ -57,6 +58,21 @@ def one_step_comm_by_scheme(shared_owner_slots: int, combiners, n: int) -> dict:
             cost += int(n) * int(shared_owner_slots)
         out[c.name] = cost
     return out
+
+
+def structure_vote_scalars(n_candidate_edges: int, rule: str) -> int:
+    """Scalars one support-voting round transmits for a candidate edge set.
+
+    Every candidate edge has exactly two voters (its endpoints), and each
+    ships ``scalars_per_edge_vote`` scalars (the in/out decision, plus the
+    vote mass for mass-weighted rules), read from the vote-rule registry
+    (:mod:`repro_torch.structure.voting`), so a newly registered rule is
+    billed correctly. Unknown names raise the registry's ``ValueError``.
+    This is what :class:`repro_torch.structure.StructureResult` reports as
+    ``comm_scalars``.
+    """
+    from ..structure.voting import get_vote_rule
+    return 2 * int(n_candidate_edges) * get_vote_rule(rule).scalars_per_edge_vote
 
 
 def admm_message_scalars(n_shared: int) -> int:

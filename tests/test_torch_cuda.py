@@ -14,6 +14,7 @@ import repro_torch.api as TA  # noqa: E402
 import repro_torch.configs as TC  # noqa: E402
 import repro_torch.stream as TS  # noqa: E402
 from repro_torch.core import grid_graph, star_graph  # noqa: E402
+from repro_torch.kernels.build import LIBRARIES  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
 from repro_torch.kernels.gram import kernel as gmod  # noqa: E402
@@ -533,3 +534,172 @@ def test_joint_kernel_matches_plain(dev, family):
     np.testing.assert_allclose(res.trajectory, plain.trajectory, rtol=0,
                                atol=1e-4)
     assert res.primal_residual[-1] < res.primal_residual[0]
+
+
+def _poisoned_inputs(dev, op, p, mask_kind, poison="F and Theta"):
+    """(clean, poisoned) operands: F with NaN and +-inf at three entries
+    and/or Theta with NaN and +-inf at three zeros of the mask, or (``"a row
+    of F"``) every entry of one row of F +inf but one NaN. On the grid mask
+    the last node has no neighbour, so its column of F is in no tile's
+    union."""
+    C = {"ising": 1, "gaussian": 1, "potts": 2, "logits C=1": 1,
+         "logits C=3": 3}[op]
+    n = 333
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(p + C)
+    x = torch.randint(0, 3, (n, p), generator=gen, device=dev).float()
+    if op == "potts":
+        F = torch.stack([(x == c).float() for c in range(1, C + 1)])
+    elif op == "ising":
+        F = (2.0 * (x > 0).float() - 1.0)[None]
+    else:
+        F = torch.randn((C, n, p), generator=gen, device=dev)
+    th = 0.2 * torch.randn((C, p, p), generator=gen, device=dev)
+    if mask_kind == "grid 16x16 + isolated node":
+        mask = torch.zeros((p, p), device=dev)
+        mask[:256, :256] = _grid_mask(dev, 16)
+    else:
+        mask = (torch.rand((p, p), generator=gen, device=dev) < .05).float()
+    bias = 0.1 * torch.randn((C, p), generator=gen, device=dev)
+    rng = np.random.RandomState(p)
+    Fp, thp = F.clone(), th.clone()
+    if poison == "a row of F":
+        row = Fp[C - 1, rng.randint(n)]
+        row[:] = float("inf")
+        row[rng.randint(p)] = float("nan")
+    if poison in ("F and Theta", "F only"):
+        cols = [rng.randint(p), rng.randint(p), p - 1]
+        for v, j in zip((float("nan"), float("inf"), -float("inf")), cols):
+            Fp[rng.randint(C), rng.randint(n), j] = v
+    if poison in ("F and Theta", "Theta only"):
+        zeros = torch.nonzero(mask == 0.0).cpu().numpy()
+        for v, (j, i) in zip((float("nan"), float("inf"), -float("inf")),
+                             zeros[rng.choice(len(zeros), 3, replace=False)]):
+            thp[rng.randint(C), j, i] = v
+    return (F, th, mask, bias), (Fp, thp, mask, bias)
+
+
+@pytest.mark.parametrize("p,mask_kind", [
+    (257, "density .05"), (257, "grid 16x16 + isolated node"),
+    (100, "density .05")])
+@pytest.mark.parametrize("op", ["ising", "gaussian", "potts", "logits C=1",
+                                "logits C=3"])
+def test_nonfinite_inputs_give_the_plain_nan_positions(dev, op, p, mask_kind):
+    # eta[c, s, i] is NaN where a zero of A[:, i] meets a non-finite
+    # Theta[c, :, i] or F[c, s, :], as in the plain version and the
+    # reference (Theta * A first); r and S follow. p = 257 takes the
+    # pre-pass (sparse walk, scan, fix-up), p = 100 the dense walk over all
+    # rows. Finite eta, and r where eta and the node's own features are
+    # finite, are bitwise what the clean inputs give.
+    _check_nonfinite(op, *_poisoned_inputs(dev, op, p, mask_kind))
+
+
+@pytest.mark.parametrize("poison,p", [
+    ("Theta only", 257), ("F only", 257), ("a row of F", 1100)])
+@pytest.mark.parametrize("op", ["ising", "gaussian", "potts", "logits C=1",
+                                "logits C=3"])
+def test_nonfinite_fixup_paths_match_plain(dev, op, poison, p):
+    # the fix-up with only Theta flagged (no list of F entries), with only F
+    # flagged, and with a row of F holding more non-finite entries than the
+    # kernel lists at once (it then walks the row)
+    _check_nonfinite(op, *_poisoned_inputs(dev, op, p, "density .05",
+                                           poison))
+
+
+def _check_nonfinite(op, clean, bad):
+    """The kernel's NaN and +-inf positions equal the plain version's; a
+    second call repeats bit for bit; finite eta, and r where eta and the
+    node's own features are finite, are bitwise what ``clean`` gives."""
+    if op.startswith("logits"):
+        def run(args):
+            return (kmod.cl_logits(*args),)
+
+        def plain(args):
+            return (kmod.cl_logits_ref(*args),)
+    else:
+        def run(args):
+            return kmod.cl_score_channels(*args, kind=op)
+
+        def plain(args):
+            return kmod.cl_score_channels_ref(*args, op)
+    got, want, ref0 = run(bad), plain(bad), run(clean)
+    # a second call repeats bit for bit, NaNs included
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, run(bad)))
+    assert bool(torch.isnan(got[0]).any())
+    same = (torch.isfinite(got[0]) & torch.isfinite(bad[0])).all(dim=0)
+    for name, g, w, c in zip(("eta", "r", "S"), got, want, ref0):
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+        assert torch.equal(torch.isposinf(g), torch.isposinf(w)), name
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w)), name
+        fin = torch.isfinite(g)
+        if name == "eta":
+            assert torch.equal(g[fin], c[fin])
+        elif name == "r":
+            at = same.expand_as(g)
+            assert torch.equal(g[at], c[at])
+        if bool(fin.any()):
+            assert _rel(g[fin], w[fin]) <= (1e-4 if name == "S" else 1e-5)
+
+
+def _exact_samples(family, graph, theta, n, seed, q=3):
+    """n exact samples of a small discrete model by enumerating its states
+    (numpy only; the card machine has no reference samplers), or of the
+    Gaussian MRF from its precision matrix."""
+    rng = np.random.RandomState(seed)
+    p, C = graph.p, (q - 1 if family == "potts" else 1)
+    node = theta[: p * C].reshape(p, C)
+    edge = theta[p * C:].reshape(graph.m, C)
+    if family == "gaussian":
+        P = np.eye(p)
+        for k, (i, j) in enumerate(graph.edges):
+            P[i, j] = P[j, i] = -edge[k, 0]
+        cov = np.linalg.inv(P)
+        return rng.multivariate_normal(cov @ node[:, 0], cov, size=n)
+    vals = (-1.0, 1.0) if family == "ising" else tuple(range(q))
+    states = np.array(np.meshgrid(*[vals] * p, indexing="ij")).reshape(p, -1).T
+    if family == "ising":
+        logp = states @ node[:, 0] + sum(
+            edge[k, 0] * states[:, i] * states[:, j]
+            for k, (i, j) in enumerate(graph.edges))
+    else:
+        ind = [(states == c).astype(float) for c in range(1, q)]
+        logp = sum(ind[c] @ node[:, c] for c in range(C)) + sum(
+            edge[k, c] * ind[c][:, i] * ind[c][:, j]
+            for k, (i, j) in enumerate(graph.edges) for c in range(C))
+    prob = np.exp(logp - logp.max())
+    return states[rng.choice(len(states), size=n, p=prob / prob.sum())]
+
+
+@pytest.mark.parametrize("policy", ["full", "knn"])
+@pytest.mark.parametrize("family", sorted(KINDS))
+def test_select_kernel_matches_plain(dev, family, policy):
+    # every prox Newton iteration of every ADMM round launches the Newton
+    # kernel; the plain select on the card is its yardstick
+    g = grid_graph(3, 3)
+    C = KINDS[family]
+    rng = np.random.RandomState(7)
+    theta = np.concatenate([0.2 * rng.randn(g.p * C),
+                            rng.choice([-0.5, 0.5], size=g.m * C)])
+    if family == "gaussian":
+        theta[g.p:] *= 0.5
+    X = _exact_samples(family, g, theta, 2000, seed=8)
+    spec = TA.StructureSpec(policy=policy, knn_k=4, n_lambdas=6,
+                            admm_rounds=20)
+    sess = TA.Plan(graph=g, family=family, structure=spec).session()
+    LIBRARIES.build_all()        # so the select below builds nothing
+    n0 = nmod.bucket_newton_stats.launches
+    res = sess.select(X)
+    launched = nmod.bucket_newton_stats.launches - n0
+    plain = sess.select(X, use_kernel=False)
+    assert nmod.bucket_newton_stats.launches - n0 == launched
+    assert launched >= len(res.lambdas)
+    assert res.support == plain.support
+    assert res.lambda_selected == plain.lambda_selected
+    np.testing.assert_allclose(res.ebic, plain.ebic, rtol=1e-5, atol=0)
+    assert res.new_compiles == 0 and res.path_compiles == 0
+    cpu = TA.Plan(graph=g, family=family, structure=spec).session(
+        device="cpu").select(X)
+    assert cpu.candidate_edges == res.candidate_edges
+    assert cpu.support == res.support
+    np.testing.assert_allclose(res.lambdas, cpu.lambdas, rtol=1e-12, atol=0)

@@ -56,6 +56,8 @@ def test_every_module_imports_and_fits_without_jax_or_reference():
         assert np.all(np.isfinite(joint.trajectory))
         sim = sess.simulate(np.tile(X, (4, 1)), estimator="admm")
         assert np.all(np.isfinite(sim.run(2).theta))
+        sel = sess.select(X, spec=dict(n_lambdas=3, admm_rounds=5))
+        assert np.all(np.isfinite(sel.ebic)) and len(sel.thetas) == 4
         loaded = [m for m in sys.modules if m.startswith(("jax.", "repro."))]
         assert not loaded, loaded
         print("ok")
@@ -95,15 +97,27 @@ def test_session_cache_is_keyed_by_plan_and_device():
 @pytest.mark.parametrize("field,value", [
     ("mesh", "host"), ("telemetry", {}), ("structure", {})])
 def test_later_slice_plan_options_refuse(field, value):
+    """Options of later slices refuse; ``structure``, ported with
+    ``select``, is accepted (a dict becomes a StructureSpec) and
+    round-trips through the reference's dict schema."""
+    if field == "structure":
+        plan = TA.Plan(graph=grid_graph(2, 2), **{field: value})
+        assert isinstance(plan.structure, TA.StructureSpec)
+        assert TA.Plan.from_dict(plan.to_dict()) == plan
+        return
     with pytest.raises(NotImplementedError, match=field):
         TA.Plan(graph=grid_graph(2, 2), **{field: value})
 
 
 @pytest.mark.parametrize("verb", ["select"])
 def test_later_slice_verbs_refuse(verb):
+    """Every verb of the reference's session is ported now: ``select``
+    returns a StructureResult on the CPU."""
     sess = TA.Plan(graph=grid_graph(2, 2)).session(device="cpu")
-    with pytest.raises(NotImplementedError):
-        getattr(sess, verb)(np.zeros((4, 4)))
+    X = np.where(np.random.RandomState(2).rand(200, 4) < 0.5, 1.0, -1.0)
+    res = getattr(sess, verb)(X, spec={"n_lambdas": 3, "admm_rounds": 5})
+    assert isinstance(res, TA.StructureResult)
+    assert len(res.thetas) == 4 and len(res.lambdas) == 3
 
 
 _DRIFT = TS.FaultPlan(drift=(TS.DriftSpec(at=2),))

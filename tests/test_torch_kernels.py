@@ -308,3 +308,60 @@ def test_logits_and_gram_wrappers_on_cpu_take_the_plain_version():
     assert torch.equal(tgram.gram(F[0]), tgram.gram_ref(F[0]))
     assert torch.equal(tgram.gram_op(F[0]), tgram.gram_ref(F[0]))
     assert (kmod.cl_logits.launches, tgram.gram.launches) == (l0, g0)
+
+
+def _poison(F, th, A, seed):
+    """Copies of F with NaN and +-inf at random entries and of Theta with
+    NaN and +-inf at zeros of A: where such an entry meets a zero of A the
+    reference's Theta * A (or F times it) is NaN."""
+    rng = np.random.RandomState(seed)
+    F, th = F.copy(), th.copy()
+    C, n, p = F.shape
+    for v in (np.nan, np.inf, -np.inf):
+        F[rng.randint(C), rng.randint(n), rng.randint(p)] = v
+    zeros = np.argwhere(A == 0.0)
+    for v, (j, i) in zip((np.nan, np.inf, -np.inf),
+                         zeros[rng.choice(len(zeros), 3, replace=False)]):
+        th[rng.randint(C), j, i] = v
+    return F, th
+
+
+def _same_nonfinite(got, want, name):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.array_equal(np.isnan(got), np.isnan(want)), name
+    assert np.array_equal(np.isposinf(got), np.isposinf(want)), name
+    assert np.array_equal(np.isneginf(got), np.isneginf(want)), name
+    fin = np.isfinite(want)
+    assert np.isnan(got).any()
+    if fin.any():        # one poisoned sample leaves little of S finite
+        assert _rel(got[fin], want[fin]) <= 1e-5, name
+
+
+@pytest.mark.parametrize("p", [37, 257])
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_plain_versions_pin_the_reference_nonfinite_positions(kind, p):
+    # eta[c, s, i] is NaN where a zero of A[:, i] meets a non-finite
+    # Theta[c, :, i] or F[c, s, :]; r and S follow from that eta
+    F, th, A, bias = _score_inputs(kind, N, p, seed=p)
+    F, th = _poison(F, th, A, seed=p + 1)
+    f32, t32 = jnp.float32, torch.float32
+    args_j = [_j(a, f32) for a in (F, th, A, bias)]
+    args_t = [_t(a, t32) for a in (F, th, A, bias)]
+    wants = [j_score_ref(*args_j, kind)]
+    if p < 128:       # the interpret-mode Pallas kernel, at a small p
+        wants.append(j_score(*args_j, kind=kind, interpret=True))
+    got = cl_score_channels_ref(*args_t, kind)
+    for want in wants:
+        for name, g, w in zip(("eta", "r", "S"), got, want):
+            _same_nonfinite(g.numpy(), w, name)
+    logits_wants = [j_logits_ref(*args_j)]
+    if p < 128:
+        logits_wants.append(j_logits(*args_j, interpret=True))
+    for want in logits_wants:
+        _same_nonfinite(cl_logits_ref(*args_t).numpy(), want, "eta")
+    # whole columns: a non-finite Theta at a zero of A poisons every sample
+    C = KINDS[kind]
+    bad_cols = np.any(~np.isfinite(th) & (A == 0.0)[None], axis=1)  # (C, p)
+    eta = cl_logits_ref(*args_t).numpy()
+    assert np.all(np.isnan(eta)[np.broadcast_to(bad_cols[:, None, :],
+                                                (C, N, p))])
