@@ -68,11 +68,30 @@ Phases:
      rebuild's share of its device time, and the kernel select against
      the plain select (same support and selected lambda, EBIC within
      1e-5); every Newton iteration of the dense fit and of every prox
-     round a Newton-kernel launch, and no plain version on a CUDA tensor.
+     round a Newton-kernel launch, and no plain version on a CUDA tensor;
+ 11. the paper's experiments from the port's own samplers
+     (repro_torch.core): the sampler law on the card (exact_sample,
+     sequential and chromatic gibbs_sample, gibbs_sample_family for every
+     family; 65536 rows from 256 chains on a 3 x 3 grid, held to the exact
+     moments at the conformance tolerances); Fig. 2's exact oracles on a
+     12-node star (exact_locals, the four schemes', the joint MPLE's and
+     the MLE's variance, on the card against the CPU within 1e-10, none
+     below the MLE's) and local fits of 4000 exact draws, kernel against
+     plain; Fig. 4 at paper size (100 nodes, n = 250, 1000, 4000,
+     gibbs_sample "auto", fit_all_local through the Newton kernel, the four
+     combiners, fit_mple with 25 Newton iterations; replicates cut to 2
+     models x 2 sets): finite MSEs, the diagonal MSE falling with n, and
+     the score kernel's pseudo-score at fit_mple's estimate stationary;
+     chromatic draws on the 64 x 64 grid at n = 4096 and 16384 (seconds,
+     the busy share of a profiled draw) and their fits, kernel against
+     plain and the diagonal error falling; the Newton kernel held against
+     its plain version at every bucket shape that phase sends and no
+     earlier phase checked, and the launch counts of phase 6.
 
-Samples are drawn here, seeded, by a chromatic Gibbs sweep written with
-neighbour lists in torch on the card; true parameters come from a seeded
-torch.Generator. Prints the redesigned kernels' first-version times beside
+Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
+written with neighbour lists in torch on the card; true parameters come
+from a seeded torch.Generator. Phase 11 draws through the port's own
+samplers. Prints the redesigned kernels' first-version times beside
 this run's, one {"kernels": [...]} line and, last, one
 {"ok": true, "device": {...}} line; exits non-zero on any failure, and
 without a result when there is no CUDA device or no repro_torch beside it.
@@ -139,6 +158,24 @@ EARLIER_MS = {
 
 PAPER_COMBINERS = ("uniform", "diagonal", "optimal", "max")
 FIELD_COMBINERS = ("diagonal", "max")
+
+#: phase 11's sampler-law draws: rows and side-by-side chains
+SAMPLER_N, SAMPLER_CHAINS = 65536, 256
+#: sampler moment error gate, max |mean u - E u| in units of 1/sqrt(n): the
+#: reference's conformance tolerances (tests/families/test_conformance.py;
+#: the Gaussian's statistics are unbounded)
+MOMENT_TOL = {"ising": 4.5, "gaussian": 9.0, "potts": 4.5}
+#: exact oracles (float64 enumeration) on the card against the CPU
+GATE_ORACLE = 1e-10
+#: Fig. 4 at paper size (benchmarks/fig4_large.py, REPRO_BENCH_FULL=1), with
+#: the replicates cut to its quick-mode counts (models x sets)
+FIG4_NS = (250, 1000, 4000)
+FIG4_CUT = {"models": 2, "sets": 2}
+#: stationarity of fit_mple's estimate: max |pseudo-score| through the score
+#: kernel (the reference's bound, tests/core/test_estimators.py:19-23)
+GATE_STATIONARY = 1e-4
+#: deployment draws on the 64 x 64 grid
+FIELD_DRAW_NS, FIELD_DRAW_CHAINS = (4096, 16384), 256
 
 
 def rel_err(a, b) -> float:
@@ -707,6 +744,271 @@ def phase10(torch, np, A, g_field, X_field, smi, gate, launches,
     torch.cuda.empty_cache()
 
 
+def phase11(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, check_newton, covered):
+    """The paper's experiments from the port's own samplers, on the card:
+    the sampler law, Fig. 2's exact oracles, Fig. 4 at paper size and the
+    deployment-scale draws, every local fit through the Newton kernel and
+    every pseudo-score through the score kernel; the Newton kernel held
+    against its plain version (phase 3's check) at every bucket shape of
+    this phase that no earlier check covered."""
+    import repro_torch.core as C
+    from repro_torch.core.batched import _bucket_design
+    from repro_torch.stream.online import pseudo_score
+
+    t_phase = time.perf_counter()
+    print(f"phase 11: the paper's experiments from the port's own samplers "
+          f"({smi})", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20120627)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        """fn() on the kernel path, every count set to 0 just before and
+        read just after: (result, wall s, Newton launches, score launches,
+        plain calls on CUDA tensors)."""
+        nmod.bucket_newton_stats.launches = 0
+        kmod.cl_score_channels.launches = 0
+        plain_cuda_calls["n"] = 0
+        out, wall = timed(fn)
+        nl = nmod.bucket_newton_stats.launches
+        sl = kmod.cl_score_channels.launches
+        launches["newton"] += nl
+        launches["score_c1"] += sl
+        return out, wall, nl, sl, plain_cuda_calls["n"]
+
+    def cover(tag, sess, X, tf):
+        """Phase 3's kernel-against-plain check (GATE_STATS, a bitwise
+        repeat) at each bucket of this fit whose shape none has had."""
+        g, inc = sess.graph, sess.plan.include_singleton
+        node_tf = (torch.zeros(g.p, device=dev) if tf is None
+                   else tf.to(dev, torch.float32)[: g.p])[:, None]
+        for b in sess.buckets:
+            nodes = torch.as_tensor(b.nodes, dtype=torch.int64, device=dev)
+            nbrs = torch.as_tensor(b.nbrs, dtype=torch.int64, device=dev)
+            mask = torch.as_tensor(b.mask, device=dev)
+            Zb, xi, base, _ = _bucket_design(sess.family, X, nodes, nbrs,
+                                             mask, node_tf[nodes], inc)
+            if ("ising", tuple(Zb.shape), False) in covered:
+                continue
+            k, Cb, d, n = Zb.shape
+            W = 0.05 * torch.randn((k, d * Cb), generator=gen, device=dev)
+            check_newton(f"{tag} bucket d={d} k={k} n={n} singletons={inc}",
+                         "ising", Zb, base, xi, W, None)
+
+    #: the phase's kernel-path calls: fits, Newton launches and iterations,
+    #: score norms and launches, and the calls that broke a count
+    tally = {"fits": 0, "newton": 0, "iters": 0, "scores": 0,
+             "score_launches": 0, "broken": 0}
+
+    def local_fits(tag, g, X, include_singleton=True, tf=None):
+        """fit_all_local through the Newton kernel, its launch counts (at
+        least one launch per bucket per Newton iteration, no plain version
+        on a CUDA tensor) and the uncovered bucket shapes."""
+        fits, wall, nl, _, pc = counted(
+            lambda: C.fit_all_local(g, X, include_singleton, tf))
+        sess = A.Plan(graph=g, include_singleton=include_singleton).session()
+        iters = {}
+        sess.fit_local(X, iters=iters, theta_fixed=tf)
+        tally["fits"] += 1
+        tally["newton"] += nl
+        tally["iters"] += sum(iters.values())
+        if not (nl >= sum(iters.values()) and pc == 0):
+            tally["broken"] += 1
+            gate(False, f"{tag}: Newton launches {nl} for Newton iterations "
+                 f"{iters}, plain calls on CUDA tensors {pc}")
+        cover(tag, sess, X, tf)
+        return fits, wall, sess
+
+    def moment_err(fam, g, theta, X):
+        mu = fam.exact_moments(g, theta)
+        emp = fam.suff_stats(g, X.double()).mean(0).cpu().numpy()
+        return float(np.max(np.abs(emp - mu)) * np.sqrt(X.shape[0]))
+
+    # ---- the sampler law on the card -----------------------------------
+    n, chains = SAMPLER_N, SAMPLER_CHAINS
+    g3 = C.grid_graph(3, 3)
+    m3 = C.random_model(g3, 0.4, 0.3, gen)
+    draws = [("exact_sample", C.ISING, g3, m3.theta,
+              lambda: C.exact_sample(m3, n, gen))]
+    for method in ("sequential", "chromatic"):
+        draws.append((f"gibbs_sample {method}", C.ISING, g3, m3.theta,
+                      lambda method=method: C.gibbs_sample(
+                          m3, n, gen, burnin=300, thin=3, n_chains=chains,
+                          method=method)))
+    for fam in (C.ISING, C.GAUSSIAN, C.POTTS3):
+        g = C.grid_graph(2, 3) if fam is C.POTTS3 else g3
+        th = fam.random_params(g, gen)
+        draws.append((f"gibbs_sample_family {fam.name}", fam, g, th,
+                      lambda fam=fam, g=g, th=th: C.gibbs_sample_family(
+                          fam, g, th, n, gen, burnin=300, thin=3,
+                          n_chains=chains)))
+    for tag, fam, g, th, draw in draws:
+        X, secs = timed(draw)
+        err, tol = moment_err(fam, g, th, X), MOMENT_TOL[fam.name]
+        gate(X.is_cuda and X.shape == (n, g.p) and err < tol,
+             f"{tag}: {n} rows on a {g.p}-node grid ({chains} chains; "
+             f"burnin 300, thin 3): max |mean u - E u| {err:.3f}/sqrt(n) "
+             f"(gate {tol}); draw {secs:.3f} s")
+
+    # ---- Fig. 2: exact oracles on a 12-node star ------------------------
+    gs = C.star_graph(12)
+    ms = C.random_model(gs, 0.5, 0.5, gen)
+
+    def oracles(m):
+        locs = C.exact_locals(m, include_singleton=False)
+        trs = {sch: C.exact_consensus_variance(m, locs, sch, False)[0]
+               for sch in PAPER_COMBINERS}
+        trs["joint"] = C.exact_joint_mple_variance(m, False)[0]
+        return locs, trs, C.exact_mle_variance(m, False)[0]
+
+    (locs, trs, tr_mle), secs = timed(lambda: oracles(ms))
+    _, warm = timed(lambda: oracles(ms))
+    (locs_c, trs_c, tr_mle_c), secs_c = timed(
+        lambda: oracles(C.IsingModel(gs, ms.theta.cpu())))
+    d_loc = max(float(np.max(np.abs(getattr(a, f) - getattr(b, f))))
+                for a, b in zip(locs, locs_c) for f in ("H", "V", "S"))
+    d_tr = max([abs(trs[k] - trs_c[k]) for k in trs] + [abs(tr_mle
+                                                            - tr_mle_c)])
+    gate(d_loc <= GATE_ORACLE and d_tr <= GATE_ORACLE,
+         f"fig2 star p=12 exact oracles on the card vs the CPU: H/V/S max "
+         f"diff {d_loc:.2e}, traces {d_tr:.2e} (gate {GATE_ORACLE}); card "
+         f"{secs:.3f} s first, {warm:.3f} s again, CPU {secs_c:.3f} s")
+    gate(all(tr >= tr_mle * (1 - 1e-4) for tr in trs.values()),
+         "fig2 no scheme below the MLE's trace (the Cramer-Rao floor): "
+         "efficiency " + ", ".join(f"{k} {v / tr_mle:.4f}"
+                                   for k, v in trs.items()))
+    Xs = C.exact_sample(ms, 4000, gen)
+    tf = ms.theta
+    fits, wall, sess = local_fits("fig2 star", gs, Xs, False, tf)
+    plain = sess.fit_local(Xs, use_kernel=False, theta_fixed=tf)
+    dth = max(float(np.max(np.abs(a.theta - b.theta)))
+              for a, b in zip(fits, plain))
+    truth = tf.cpu().numpy()
+    free = C.free_indices(gs, include_singleton=False)
+    emp = {sch: 4000 * C.mse(C.combine(gs, fits, sch, False, truth), truth,
+                             free) / tr_mle for sch in PAPER_COMBINERS}
+    gate(dth <= GATE_THETA,
+         f"fig2 star n=4000 (exact_sample): kernel vs plain local theta max "
+         f"diff {dth:.2e}; fit_all_local {wall:.3f} s; one draw's n MSE / "
+         f"tr V_mle " + ", ".join(f"{k} {v:.3f}" for k, v in emp.items()))
+
+    # ---- Fig. 4 at paper size ------------------------------------------
+    print(f"  fig4 replicates cut to {FIG4_CUT['models']} models x "
+          f"{FIG4_CUT['sets']} sets (fig4_large.py quick-mode counts; paper "
+          f"size 5 x 10)", flush=True)
+    for gname, g in (("euclidean", C.euclidean_graph(100, 0.15, seed=0)),
+                     ("scalefree", C.scale_free_graph(100, m=1, seed=0))):
+        models = [C.random_model(g, 0.5, 0.5, gen)
+                  for _ in range(FIG4_CUT["models"])]
+        mean_mse, finite, worst = {}, True, 0.0
+        for n in FIG4_NS:
+            acc = {s: [] for s in PAPER_COMBINERS + ("joint",)}
+            secs = {"draw": 0.0, "fit_all_local": 0.0, "fit_mple": 0.0}
+            for m in models:
+                truth = m.theta.cpu().numpy()
+                for _ in range(FIG4_CUT["sets"]):
+                    X, t = timed(lambda: C.gibbs_sample(
+                        m, n, gen, burnin=150, thin=2, method="auto"))
+                    secs["draw"] += t
+                    fits, t, _ = local_fits(f"fig4 {gname} n={n}", g, X)
+                    secs["fit_all_local"] += t
+                    for sch in PAPER_COMBINERS:
+                        acc[sch].append(C.mse(C.combine(g, fits, sch),
+                                              truth))
+                    # float64: in float32 the 1e-8 ridge vanishes against
+                    # O(1) curvature, and two adjacent nodes frozen in all
+                    # n rows (seen at n = 250) make H exactly singular
+                    th, t = timed(lambda: C.fit_mple(g, X.double(),
+                                                     n_iter=25))
+                    secs["fit_mple"] += t
+                    acc["joint"].append(C.mse(th, truth))
+                    if n == FIG4_NS[-1]:
+                        gs_, _, _, sl, pc = counted(
+                            lambda: pseudo_score(g, th, X, n))
+                        worst = max(worst, float(np.max(np.abs(gs_))))
+                        tally["scores"] += 1
+                        tally["score_launches"] += sl
+                        if sl != 1 or pc:
+                            tally["broken"] += 1
+                            gate(False, f"fig4 {gname}: score launches "
+                                 f"{sl} per pseudo-score, plain calls on "
+                                 f"CUDA tensors {pc}")
+            mean_mse[n] = {s: float(np.mean(v)) for s, v in acc.items()}
+            finite &= all(np.all(np.isfinite(v)) for v in acc.values())
+            reps = FIG4_CUT["models"] * FIG4_CUT["sets"]
+            print(f"  fig4 {gname} n={n}: mean MSE "
+                  + ", ".join(f"{s} {v:.4f}" for s, v in
+                              mean_mse[n].items())
+                  + "; per replicate " + ", ".join(
+                      f"{k} {v / reps:.3f} s" for k, v in secs.items()),
+                  flush=True)
+        lo, hi = mean_mse[FIG4_NS[0]]["diagonal"], \
+            mean_mse[FIG4_NS[-1]]["diagonal"]
+        gate(finite and hi < lo and worst < GATE_STATIONARY,
+             f"fig4 {gname}: every MSE finite {finite}; diagonal mean MSE "
+             f"n={FIG4_NS[0]} {lo:.4f} > n={FIG4_NS[-1]} {hi:.4f}; max "
+             f"|pseudo-score| at fit_mple's estimate (score kernel) "
+             f"{worst:.2e} < {GATE_STATIONARY}")
+
+    # ---- deployment scale: chromatic draws on the 64 x 64 grid ---------
+    gf = C.grid_graph(64, 64)
+    mf = C.random_model(gf, 0.5, 0.5, gen)
+    truth = mf.theta.cpu().numpy()
+    sess = A.Plan(graph=gf, combiners=("diagonal",)).session()
+    field = {}
+    for n in FIELD_DRAW_NS:
+        X, secs = timed(lambda: C.chromatic_gibbs_sample(
+            mf, n, gen, n_chains=FIELD_DRAW_CHAINS))
+        res, wall, nl, sl, pc = counted(lambda: sess.fit(X))
+        iters = {}
+        sess.fit_local(X, iters=iters)
+        tally["fits"] += 1
+        tally["newton"] += nl
+        tally["iters"] += sum(iters.values())
+        tally["scores"] += 1
+        tally["score_launches"] += sl
+        tally["broken"] += not (nl >= sum(iters.values()) and sl == 1
+                                and pc == 0)
+        d = res.combined["diagonal"] - truth
+        field[n] = (X, res, float(d @ d))
+        gate(nl >= sum(iters.values()) and sl == 1 and pc == 0
+             and np.all(np.isfinite(res.theta)),
+             f"field chromatic_gibbs_sample n={n} ({FIELD_DRAW_CHAINS} "
+             f"chains, burnin 200, thin 5): draw {secs:.3f} s; fit {wall:.3f}"
+             f" s, Newton launches {nl} for iterations {iters}, score {sl}, "
+             f"plain calls on CUDA tensors {pc}; diagonal MSE {d @ d:.4f}")
+        cover("field", sess, X, None)
+    device_profile(torch, f"chromatic draw n={FIELD_DRAW_NS[0]}",
+                   lambda: C.chromatic_gibbs_sample(
+                       mf, FIELD_DRAW_NS[0], gen,
+                       n_chains=FIELD_DRAW_CHAINS))
+    X, res, _ = field[FIELD_DRAW_NS[-1]]
+    plain = sess.fit(X, use_kernel=False)
+    dth = float(np.max(np.abs(res.combined["diagonal"]
+                              - plain.combined["diagonal"])))
+    lo, hi = field[FIELD_DRAW_NS[0]][2], field[FIELD_DRAW_NS[-1]][2]
+    gate(dth <= GATE_THETA and hi < lo,
+         f"field: kernel vs plain combined theta max diff {dth:.2e}; "
+         f"diagonal MSE n={FIELD_DRAW_NS[0]} {lo:.4f} > "
+         f"n={FIELD_DRAW_NS[-1]} {hi:.4f}")
+    del field, X, res, plain
+    torch.cuda.empty_cache()
+    gate(tally["broken"] == 0 and tally["newton"] >= tally["iters"] > 0
+         and tally["score_launches"] == tally["scores"] > 0,
+         f"phase 11 launches: Newton {tally['newton']} over {tally['fits']} "
+         f"local fits ({tally['iters']} bucket Newton iterations), score "
+         f"{tally['score_launches']} over {tally['scores']} pseudo-scores; "
+         f"calls with a broken count {tally['broken']}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -800,7 +1102,10 @@ def main() -> int:
     print("phase 3: kernels against their plain versions on the card")
     errs = {"newton": 0.0, "score_c1": 0.0, "score_cn": 0.0}
 
+    covered = set()     # (kind, design shape, weighted) held against plain
+
     def check_newton(tag, kind, Zb, base, xi, W, sw):
+        covered.add((kind, tuple(Zb.shape), sw is not None))
         g1, K1 = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
         g2, K2 = nmod.bucket_newton_stats(kind, Zb, base, xi, W, sw)
         g0, K0 = nmod.bucket_newton_stats_ref(kind, Zb, base, xi, W, sw)
@@ -1522,6 +1827,8 @@ def main() -> int:
     phase10(torch, np, A, g_field, X_field, smi, gate, launches,
             plain_cuda_calls, nmod, gen, dev, bucket_inputs, check_newton,
             time_newton)
+    phase11(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, check_newton, covered)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

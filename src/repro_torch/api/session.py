@@ -123,19 +123,26 @@ class EstimationSession:
     def fit_local(self, X, sample_weight=None, warm_start=None,
                   want_influence: Optional[bool] = None,
                   use_kernel: bool = True,
-                  iters: Optional[dict] = None) -> List[LocalFit]:
+                  iters: Optional[dict] = None,
+                  theta_fixed=None) -> List[LocalFit]:
         """Per-node local CL fits under this plan.
 
         ``use_kernel=False`` asks for the plain PyTorch Newton statistics;
-        ``iters`` receives each bucket's Newton iteration count.
+        ``iters`` receives each bucket's Newton iteration count;
+        ``theta_fixed`` overrides the plan's fixed coordinates for this
+        call only (the ``fit_all_local`` shim passes its per-call vector
+        here, so varying it mints no new plan and session).
         """
         Xt = self._as_samples(X)
+        tf = (self._tf(Xt.dtype) if theta_fixed is None
+              else _tensor(theta_fixed).to(device=self.device,
+                                           dtype=Xt.dtype))
         sw = (None if sample_weight is None
               else _tensor(sample_weight).to(self.device))
         return fit_all_local_batched(
             self.graph, Xt,
             include_singleton=self.plan.include_singleton,
-            theta_fixed=self._tf(Xt.dtype), n_iter=self.plan.n_iter,
+            theta_fixed=tf, n_iter=self.plan.n_iter,
             sample_weight=sw, warm_start=warm_start,
             family=self.family,
             want_influence=(self.want_influence if want_influence is None

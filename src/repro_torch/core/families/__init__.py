@@ -1,14 +1,15 @@
 """Model-family registry.
 
-Families register here by name; the batched engine, the combiners and the
-session resolve families through :func:`get_family` /
+Families register here by name; the batched engine, the combiners, the
+samplers and the session resolve families through :func:`get_family` /
 :func:`registered_families`.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
-from .base import ModelFamily
+from .base import (ModelFamily, fit_mple_family, fit_node_oracle,
+                   random_rows)
 from .gaussian import GaussianMRF
 from .ising import IsingFamily
 from .potts import PottsFamily
@@ -47,4 +48,5 @@ __all__ = [
     "ModelFamily", "IsingFamily", "GaussianMRF", "PottsFamily",
     "ISING", "GAUSSIAN", "POTTS3",
     "register_family", "get_family", "registered_families",
+    "fit_mple_family", "fit_node_oracle", "random_rows",
 ]

@@ -14,17 +14,21 @@ Families supply closed-form per-channel score ``dl_deta`` and curvature
 hooks, which is what lets the degree-bucketed engine
 (:mod:`repro_torch.core.batched`) solve every family without autodiff.
 
-This slice carries the layout and channel hooks; samplers, exact oracles
-and ``random_params`` come with the sampler slice.
+Families also supply sampler draws and an exact small-p oracle
+(enumeration or closed form), which the samplers' moment checks and the
+centralized reference fits (:func:`fit_mple_family`,
+:func:`fit_node_oracle`: plain autodiff Newton) stand on. Randomness comes
+from an explicit ``torch.Generator`` on the sampling device.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..graphs import Graph
+from ..ising import as_tensor
 
 
 class ModelFamily:
@@ -110,3 +114,135 @@ class ModelFamily:
     def curvature(self, eta: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
         """Closed-form -d^2 loglik / d eta^2, PSD: (..., C, C, n)."""
         raise NotImplementedError
+
+    # --------------------------------------------------- sampling hooks
+    def init_draw(self, generator: torch.Generator, p: int,
+                  device=None) -> torch.Tensor:
+        """(p,) initial Gibbs state on ``resolve_device(device)``, every
+        site drawn independently (so n states are one draw of n * p)."""
+        raise NotImplementedError
+
+    def cond_draw(self, generator: torch.Generator,
+                  eta: torch.Tensor) -> torch.Tensor:
+        """Draw node values from conditionals: eta (..., C) -> (...)."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------ model
+    def suff_stats(self, graph: Graph, X: torch.Tensor) -> torch.Tensor:
+        """u(x): (n, n_params) in flat block order."""
+        raise NotImplementedError
+
+    def cond_logits(self, graph: Graph, theta: torch.Tensor,
+                    X: torch.Tensor) -> torch.Tensor:
+        """All-node channel logits: (n, p, C)."""
+        h = self.node_params(graph, theta)                   # (p, C)
+        Tc = self.coupling_tensor(graph, theta)              # (p, p, C)
+        F = self.edge_features(X)                            # (n, p, C)
+        return h[None] + torch.einsum("njc,jic->nic", F, Tc)
+
+    def cond_loglik(self, graph: Graph, theta: torch.Tensor,
+                    X: torch.Tensor) -> torch.Tensor:
+        """Per-node conditional loglik log p(x_i | x_N(i)): (n, p)."""
+        eta = self.cond_logits(graph, theta, X)              # (n, p, C)
+        ll = self.loglik_eta(eta.permute(1, 2, 0), X.T)      # (p, n)
+        return ll.T
+
+    def pseudo_loglik(self, graph: Graph, theta: torch.Tensor,
+                      X: torch.Tensor) -> torch.Tensor:
+        """Average pseudo-likelihood (Eq. 2 generalized)."""
+        return torch.mean(torch.sum(self.cond_loglik(graph, theta, X), dim=1))
+
+    def pseudo_score(self, graph: Graph, theta, X) -> np.ndarray:
+        """Reference flat gradient of the average pseudo-likelihood, by
+        ``torch.autograd`` in float32 on the device of ``X``."""
+        X = as_tensor(X, dtype=torch.float32)
+        t = torch.tensor(np.asarray(theta, dtype=np.float32),
+                         device=X.device, requires_grad=True)
+        (g,) = torch.autograd.grad(self.pseudo_loglik(graph, t, X), t)
+        return g.detach().cpu().numpy().astype(np.float64)
+
+    # ------------------------------------------------------------ oracle
+    def exact_moments(self, graph: Graph, theta) -> np.ndarray:
+        """E[u(x)] under p(x | theta) — small p / closed form only."""
+        raise NotImplementedError
+
+    def exact_sample(self, graph: Graph, theta, n: int,
+                     generator: torch.Generator) -> torch.Tensor:
+        """n iid samples from the exact joint (small p / closed form), on
+        the device of ``theta``."""
+        raise NotImplementedError
+
+    def random_params(self, graph: Graph, generator: torch.Generator,
+                      scale_edge: float = 0.4, scale_node: float = 0.3,
+                      device=None) -> torch.Tensor:
+        """A valid random flat float64 theta on ``resolve_device(device)``
+        (families enforce their own constraints, e.g. the Gaussian
+        precision staying PD)."""
+        raise NotImplementedError
+
+    def sample(self, graph: Graph, theta, n: int, generator: torch.Generator,
+               burnin: int = 200, thin: int = 5,
+               n_chains: int = 8) -> torch.Tensor:
+        """Default sampler: family-generic chromatic Gibbs."""
+        from ..sampling import gibbs_sample_family
+        return gibbs_sample_family(self, graph, theta, n, generator,
+                                   burnin=burnin, thin=thin,
+                                   n_chains=n_chains)
+
+
+# ---------------------------------------------------------------- generic
+def random_rows(family: ModelFamily, generator: torch.Generator, n: int,
+                p: int, device=None) -> torch.Tensor:
+    """(n, p) iid rows of *valid* node values via ``family.init_draw``.
+
+    The family-generic cheap sample source for well-typed data (spin
+    signs, reals, Potts states) without draws from any particular joint
+    model.
+    """
+    return family.init_draw(generator, n * p, device).reshape(n, p)
+
+
+# Reference fits shared by every family: plain autodiff Newton on the
+# family criteria. Slow but definitionally correct.
+def fit_mple_family(family: ModelFamily, graph: Graph, X,
+                    free_idx: Optional[Sequence[int]] = None,
+                    theta_fixed=None, n_iter: int = 40) -> np.ndarray:
+    """Centralized joint MPLE for any family; returns full flat theta.
+    Runs on the device of ``X`` (a tensor; anything else goes to the
+    card)."""
+    from ..estimators import fit_free
+    X = as_tensor(X)
+    return fit_free(lambda t: family.pseudo_loglik(graph, t, X), X,
+                    family.n_params(graph), free_idx, theta_fixed, n_iter)
+
+
+def fit_node_oracle(family: ModelFamily, graph: Graph, X, i: int,
+                    include_singleton: bool = True, theta_fixed=None,
+                    n_iter: int = 40) -> np.ndarray:
+    """Node i's local CL fit by autodiff Newton — the per-node oracle.
+
+    Returns the ``family.beta(graph, i, include_singleton)``-ordered local
+    parameter vector (block layout identical to the batched engine's).
+    """
+    from ..estimators import newton_maximize, node_design
+    C = family.block_dim
+    X = as_tensor(X)
+    theta_fixed = (torch.zeros(family.n_params(graph), dtype=X.dtype,
+                               device=X.device)
+                   if theta_fixed is None
+                   else as_tensor(theta_fixed, X.device, X.dtype))
+    F = family.edge_features(node_design(graph, X, i))      # (n, deg, C)
+    xi = X[:, i]
+    lead = 1 if include_singleton else 0
+    d = (lead + F.shape[1]) * C
+    offset = theta_fixed[family.node_block(graph, i)]
+
+    def fun(w):
+        Wb = w.reshape(lead + F.shape[1], C)
+        eta = torch.einsum("njc,jc->nc", F, Wb[lead:])       # (n, C)
+        eta = eta + (Wb[0][None, :] if include_singleton
+                     else offset[None, :])
+        return torch.mean(family.loglik_eta(eta.T, xi))
+
+    w = newton_maximize(fun, X.new_zeros(d), n_iter=n_iter)
+    return w.cpu().numpy()

@@ -7,14 +7,19 @@ multinomial logistic channels with the reference channel's logit fixed at 0:
     p(x_i = c | x_N(i)) proportional to exp( theta_{i,c}
         + sum_{j in N(i)} theta_{ij,c} 1[x_j = c] ),   p(x_i = 0) prop. 1.
 
-Samples are float tensors of integer states.
+Samples are float tensors of integer states. The exact small-p oracle
+enumerates all q^p states in float64 on the device of the parameters.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from ...device import resolve_device
+from ..graphs import Graph
+from ..ising import as_tensor, edge_index
 from .base import ModelFamily
 
 
@@ -69,3 +74,72 @@ class PottsFamily(ModelFamily):
                         device=eta.device)[..., :, :, None]
         diag = pi[..., :, None, :] * eye
         return diag - pi[..., :, None, :] * pi[..., None, :, :]
+
+    # ---------------------------------------------------- sampling hooks
+    def init_draw(self, generator, p: int, device=None):
+        return torch.randint(0, self.q, (p,), generator=generator,
+                             device=resolve_device(device)).to(torch.float32)
+
+    def cond_draw(self, generator, eta):
+        """A categorical draw over the q states by inverse CDF of the
+        softmax (reference channel's logit 0)."""
+        ez = torch.cat([torch.zeros_like(eta[..., :1]), eta], dim=-1)
+        cdf = torch.softmax(ez, dim=-1).cumsum(dim=-1)
+        u = torch.rand(eta.shape[:-1], generator=generator,
+                       device=eta.device, dtype=cdf.dtype)
+        return (cdf[..., :-1] < u[..., None]).sum(dim=-1).to(torch.float32)
+
+    # ------------------------------------------------------------- model
+    def suff_stats(self, graph: Graph, X):
+        n = X.shape[0]
+        F = self.edge_features(X)                            # (n, p, C)
+        node = F.reshape(n, graph.p * self.block_dim)
+        if not graph.m:
+            return torch.cat([node, X.new_zeros((n, 0))], dim=1)
+        rows, cols = edge_index(graph, X.device)
+        pair = (F[:, rows, :] * F[:, cols, :]).reshape(
+            n, graph.m * self.block_dim)
+        return torch.cat([node, pair], dim=1)
+
+    # ------------------------------------------------------------ oracle
+    def all_states(self, p: int) -> np.ndarray:
+        """(q^p, p) enumeration of all state vectors (small p only)."""
+        q = self.q
+        idx = np.arange(q ** p, dtype=np.int64)
+        return ((idx[:, None] // q ** np.arange(p)[None, :]) % q
+                ).astype(np.float32)
+
+    def _state_scores(self, graph: Graph, theta):
+        """(u(x) for every state, u(x) . theta), float64 on theta's
+        device."""
+        theta = as_tensor(theta, dtype=torch.float64)
+        states = torch.as_tensor(self.all_states(graph.p),
+                                 device=theta.device).to(torch.float64)
+        U = self.suff_stats(graph, states)
+        return U, U @ theta
+
+    def exact_probs(self, graph: Graph, theta) -> torch.Tensor:
+        return torch.softmax(self._state_scores(graph, theta)[1], dim=0)
+
+    def log_partition(self, graph: Graph, theta) -> torch.Tensor:
+        return torch.logsumexp(self._state_scores(graph, theta)[1], dim=0)
+
+    def exact_moments(self, graph: Graph, theta) -> np.ndarray:
+        U, s = self._state_scores(graph, theta)
+        return (torch.softmax(s, dim=0) @ U).cpu().numpy()
+
+    def exact_sample(self, graph: Graph, theta, n: int, generator):
+        pr = self.exact_probs(graph, theta)
+        idx = torch.multinomial(pr, n, replacement=True, generator=generator)
+        states = torch.as_tensor(self.all_states(graph.p), device=pr.device)
+        return states[idx]
+
+    def random_params(self, graph: Graph, generator, scale_edge: float = 0.4,
+                      scale_node: float = 0.3, device=None):
+        dev = resolve_device(device)
+        C = self.block_dim
+        node = scale_node * torch.randn(graph.p * C, generator=generator,
+                                        device=dev, dtype=torch.float64)
+        edge = scale_edge * torch.randn(graph.m * C, generator=generator,
+                                        device=dev, dtype=torch.float64)
+        return torch.cat([node, edge])

@@ -1,5 +1,5 @@
-"""Carry plans, estimates, fault plans, stream states and model parameters
-across from the reference package.
+"""Carry plans, estimates, fault plans, stream states, Ising models and
+model parameters across from the reference package.
 
 The port keeps the reference's layouts by design, so these are checked
 identities: they validate what they are given and hand back the port's own
@@ -14,6 +14,8 @@ import torch
 
 from .api.plan import Plan
 from .core.estimators import LocalFit
+from .core.graphs import Graph
+from .core.ising import IsingModel
 from .device import resolve_device
 from .models.common import ArchConfig, ParamSpec
 from .models.transformer import abstract_params
@@ -74,6 +76,19 @@ def theta_from_numpy(theta, plan: Plan, device=None) -> torch.Tensor:
         raise ValueError(f"theta has shape {arr.shape}; family "
                          f"{plan.family!r} on this graph has {expect} params")
     return torch.as_tensor(arr, device=device)
+
+
+def ising_model_from_numpy(p: int, edges, theta, device=None) -> IsingModel:
+    """The port's :class:`IsingModel` from a reference model's graph (its
+    node count and edge tuples) and flat theta (``p + m`` entries,
+    singletons then edges), as a float64 tensor on
+    ``resolve_device(device)``."""
+    graph = Graph(int(p), tuple((int(i), int(j)) for i, j in edges))
+    arr = np.asarray(theta, dtype=np.float64)
+    if arr.shape != (graph.n_params,):
+        raise ValueError(f"theta has shape {arr.shape}; an Ising model on "
+                         f"this graph has {graph.n_params} params")
+    return IsingModel(graph, torch.tensor(arr, device=resolve_device(device)))
 
 
 def local_fits_from_numpy(fits: Sequence[Optional[object]]) -> List[LocalFit]:

@@ -703,3 +703,88 @@ def test_select_kernel_matches_plain(dev, family, policy):
     assert cpu.candidate_edges == res.candidate_edges
     assert cpu.support == res.support
     np.testing.assert_allclose(res.lambdas, cpu.lambdas, rtol=1e-12, atol=0)
+
+
+# ------------------------------------------ samplers and exact oracles
+#: sampler moment error gate, in units of 1/sqrt(n) (the conformance
+#: tolerances: the Gaussian's statistics are unbounded)
+MOMENT_TOL = {"ising": 4.5, "gaussian": 9.0, "potts": 4.5}
+
+
+def _card_gen(dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _moment_err(fam, graph, theta, X):
+    mu = fam.exact_moments(graph, theta)
+    emp = fam.suff_stats(graph, X.double()).mean(0).cpu().numpy()
+    return float(np.max(np.abs(emp - mu)) * np.sqrt(X.shape[0]))
+
+
+@pytest.mark.parametrize("sampler", ["exact", "sequential", "chromatic",
+                                     "ising", "gaussian", "potts"])
+def test_samplers_on_the_card_match_exact_moments(dev, sampler):
+    import repro_torch.core as TCo
+    n = 16384
+    if sampler in KINDS:
+        fam = TCo.get_family(sampler)
+        g = grid_graph(2, 3) if sampler == "potts" else grid_graph(3, 3)
+        theta = fam.random_params(g, _card_gen(dev, 1))
+        X = TCo.gibbs_sample_family(fam, g, theta, n, _card_gen(dev, 2),
+                                    burnin=300, thin=3, n_chains=256)
+    else:
+        fam, g = TCo.ISING, grid_graph(3, 3)
+        m = TCo.random_model(g, 0.4, 0.3, _card_gen(dev, 3))
+        theta = m.theta
+        gen = _card_gen(dev, 4)
+        X = (TCo.exact_sample(m, n, gen) if sampler == "exact" else
+             TCo.gibbs_sample(m, n, gen, burnin=300, thin=3, n_chains=256,
+                              method=sampler))
+    assert X.device.type == dev.type and X.shape == (n, g.p)
+    assert X.dtype == torch.float32
+    assert _moment_err(fam, g, theta, X) < MOMENT_TOL[fam.name]
+
+
+def test_exact_oracles_on_the_card_match_the_cpu(dev):
+    import repro_torch.core as TCo
+    g = star_graph(8)
+    m = TCo.random_model(g, 0.5, 0.5, _card_gen(dev, 5))
+    mc = TCo.IsingModel(g, m.theta.cpu())
+    for inc in (False, True):
+        loc, loc_c = TCo.exact_locals(m, inc), TCo.exact_locals(mc, inc)
+        for a, b in zip(loc, loc_c):
+            for name in ("H", "V", "S", "probs"):
+                np.testing.assert_allclose(getattr(a, name), getattr(b, name),
+                                           rtol=0, atol=1e-10)
+        for sch in ("uniform", "diagonal", "optimal", "max"):
+            assert abs(TCo.exact_consensus_variance(m, loc, sch, inc)[0]
+                       - TCo.exact_consensus_variance(mc, loc_c, sch,
+                                                      inc)[0]) <= 1e-10
+        for fn in (TCo.exact_joint_mple_variance, TCo.exact_mle_variance):
+            np.testing.assert_allclose(fn(m, inc)[1], fn(mc, inc)[1],
+                                       rtol=0, atol=1e-10)
+
+
+def test_centralized_fits_on_the_card_match_the_cpu(dev):
+    import repro_torch.core as TCo
+    g = grid_graph(3, 3)
+    m = TCo.random_model(g, 0.4, 0.3, _card_gen(dev, 6))
+    X = TCo.exact_sample(m, 4000, _card_gen(dev, 7)).double()
+    Xc = X.cpu()
+    np.testing.assert_allclose(TCo.fit_mple(g, X), TCo.fit_mple(g, Xc),
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(TCo.fit_mle_exact(g, X),
+                               TCo.fit_mle_exact(g, Xc), rtol=0, atol=1e-8)
+    res = TCo.admm_mple(g, X, n_iters=3, init="zero")
+    res_c = TCo.admm_mple(g, Xc, n_iters=3, init="zero")
+    np.testing.assert_allclose(res.trajectory, res_c.trajectory, rtol=0,
+                               atol=1e-8)
+    # the batched shim on the card launches the Newton kernel
+    n0 = nmod.bucket_newton_stats.launches
+    fits = TCo.fit_all_local(g, X)
+    assert nmod.bucket_newton_stats.launches > n0
+    loop = TCo.fit_all_local(g, Xc, method="loop")
+    for a, b in zip(fits, loop):
+        np.testing.assert_allclose(a.theta, b.theta, rtol=0, atol=1e-5)

@@ -58,6 +58,16 @@ def test_every_module_imports_and_fits_without_jax_or_reference():
         assert np.all(np.isfinite(sim.run(2).theta))
         sel = sess.select(X, spec=dict(n_lambdas=3, admm_rounds=5))
         assert np.all(np.isfinite(sel.ebic)) and len(sel.thetas) == 4
+        import torch
+        from repro_torch.core import (exact_locals, fit_mple, gibbs_sample,
+                                      random_model)
+        gen = torch.Generator()
+        gen.manual_seed(0)
+        m = random_model(grid_graph(2, 2), 0.4, 0.3, gen, device="cpu")
+        Xs = gibbs_sample(m, 64, gen, burnin=10, thin=1)
+        assert Xs.shape == (64, 4)
+        assert np.all(np.isfinite(fit_mple(m.graph, Xs.double(), n_iter=5)))
+        assert len(exact_locals(m)) == 4
         loaded = [m for m in sys.modules if m.startswith(("jax.", "repro."))]
         assert not loaded, loaded
         print("ok")
@@ -168,6 +178,44 @@ def test_stream_entry_points_insist_on_a_device(monkeypatch):
         TS.StreamingEstimator(grid_graph(2, 2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TS.StreamSimulator(grid_graph(2, 2), np.ones((8, 4)))
+
+
+def test_sampler_and_oracle_entry_points_insist_on_a_device(monkeypatch):
+    """What allocates from nothing, or is handed numpy rather than a
+    tensor, runs on the card or raises; given tensors, it runs on theirs."""
+    import repro_torch.core as TC
+    from repro_torch.interop import ising_model_from_numpy
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = grid_graph(2, 2)
+    gen = torch.Generator()
+    theta, X = np.zeros(8), np.ones((16, 4))
+    calls = [
+        lambda: TC.random_model(g, 0.5, 0.5, gen),
+        lambda: TC.random_rows(TC.ISING, gen, 4, 4),
+        lambda: ising_model_from_numpy(4, g.edges, theta),
+        lambda: TC.gibbs_sample_family(TC.ISING, g, theta, 8, gen),
+        lambda: TC.log_partition(g, theta),
+        lambda: TC.fit_mple(g, X),
+        lambda: TC.fit_mle_exact(g, X),
+        lambda: TC.fit_all_local(g, X),
+        lambda: TC.fit_all_local(g, X, method="loop"),
+        lambda: TC.admm_mple(g, X, init="zero"),
+        lambda: TC.fit_mple_family(TC.POTTS3, g, X),
+        lambda: TC.fit_node_oracle(TC.GAUSSIAN, g, X, 0),
+    ]
+    for fam in TC.registered_families():
+        calls += [lambda fam=fam: fam.random_params(g, gen),
+                  lambda fam=fam: fam.init_draw(gen, 4),
+                  lambda fam=fam: fam.exact_sample(g, theta[: 8], 8, gen)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    m = TC.random_model(g, 0.5, 0.5, gen, device="cpu")
+    assert m.theta.device.type == "cpu"
+    assert TC.gibbs_sample(m, 8, gen, burnin=2, thin=1).device.type == "cpu"
+    Xt = torch.tensor(np.where(np.random.RandomState(3).rand(64, 4) < 0.5,
+                               1.0, -1.0))
+    assert np.all(np.isfinite(TC.fit_mple(g, Xt, n_iter=2)))
 
 
 def test_unknown_names_raise_listing_registries():
