@@ -86,7 +86,23 @@ Phases:
      the busy share of a profiled draw) and their fits, kernel against
      plain and the diagonal error falling; the Newton kernel held against
      its plain version at every bucket shape that phase sends and no
-     earlier phase checked, and the launch counts of phase 6.
+     earlier phase checked, and the launch counts of phase 6;
+ 12. parameter drift, durable stream checkpoints and a family without a
+     fused-kernel epilogue: the hostile star of tests/stream/
+     test_checkpoint.py (crash, Byzantine, replay and a drift at round 7;
+     save_stream at round 6, restore_stream into a fresh simulator, rounds
+     7-12 equal within 1e-10 with equal network counters; two same-seed
+     runs bitwise equal; one-step and ADMM); a Gaussian MRF on the 64 x 64
+     grid (16384 exact rows, window 2048, 256 arrivals per node per round,
+     16 rounds, drift at round 8 at a scale that keeps I - T positive
+     definite): the rows fed before the change-point unchanged, the truth
+     moved at free coordinates only, the re-drawn tail at the drifted
+     exact moments, a Newton launch in every round and a score launch in
+     every recorded round, and the plain versions' trajectory within 1e-4;
+     an Ising family registered with no epilogue fitted on phase 4's
+     Euclidean rows and the field rows against the registered Ising's
+     kernel fit (theta 1e-4, score norm 1e-4 relative, no Newton or score
+     launch of its own), both walls printed.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -176,6 +192,29 @@ FIG4_CUT = {"models": 2, "sets": 2}
 GATE_STATIONARY = 1e-4
 #: deployment draws on the 64 x 64 grid
 FIELD_DRAW_NS, FIELD_DRAW_CHAINS = (4096, 16384), 256
+
+#: phase 12's hostile star (tests/stream/test_checkpoint.py::_mk, _hostile):
+#: the rounds run and the round of the checkpoint; a restored run must
+#: equal the uninterrupted one within GATE_RESTORE (rtol 0)
+HOSTILE_ROUNDS, HOSTILE_SAVE = 12, 6
+GATE_RESTORE = 1e-10
+#: phase 12's field drift: rounds, change-point and the jump's scale. With
+#: GaussianMRF.random_params' guard (every row of |T| sums to at most 0.9)
+#: and degree 4, Gershgorin leaves about 0.005 per entry for I - T to stay
+#: positive definite
+DRIFT_ROUNDS, DRIFT_AT, DRIFT_SCALE = 16, 8, 0.005
+#: the field drift's window and arrivals per node per round (phase 9's rate)
+DRIFT_WINDOW, DRIFT_RATE = 2048, 256
+#: the simulator's trajectory through the kernels against the plain versions
+GATE_TRAJECTORY = 1e-4
+#: the field drift's re-drawn tail: the mean over its means and edge second
+#: moments of (empirical - exact)^2 n / variance. It is 1 in expectation for
+#: rows drawn from the drifted law, with a spread of about 0.01 at these
+#: counts; the jump at DRIFT_SCALE raises it by about 0.5 for rows of the
+#: other law (phase 12 prints the exact shift), so the controls, the
+#: original tail against the drifted law and the re-drawn tail against the
+#: undrifted one, must read above the gate
+GATE_TAIL_Z2 = 1.15
 
 
 def rel_err(a, b) -> float:
@@ -1009,6 +1048,332 @@ def phase11(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase12(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, g_eu, X_eu, g_field, X_field, check_newton, covered):
+    """Parameter drift, durable stream checkpoints and a family without a
+    fused-kernel epilogue, on the card: the hostile star's save and restore
+    across its change-point, with the Newton kernel held against its plain
+    version (phase 3's check) at every bucket shape of those runs that no
+    earlier check covered; a drifting Gaussian field through the Newton
+    and score kernels against the plain versions; and an epilogue-less
+    Ising family's fit (closed-form hooks, autodiff score) against the
+    registered Ising's kernel fit."""
+    import dataclasses
+    import functools
+    import tempfile
+
+    import repro_torch.checkpoint as CK
+    import repro_torch.core as C
+    import repro_torch.core.batched as bmod
+    from repro_torch.core.families import (GAUSSIAN, IsingFamily,
+                                           register_family)
+    from repro_torch.stream import (ArrivalSpec, ByzantineSpec, CrashSpec,
+                                    DriftSpec, FaultPlan, NetworkConfig,
+                                    ReplaySpec, StreamSimulator)
+
+    t_phase = time.perf_counter()
+    print(f"phase 12: drift, stream checkpoints and an epilogue-less family "
+          f"({smi})", flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20120628)
+
+    def counted(fn):
+        """fn() on the kernel path, every count set to 0 just before and
+        read just after: (result, wall s, Newton launches, score launches,
+        plain calls on CUDA tensors)."""
+        nmod.bucket_newton_stats.launches = 0
+        kmod.cl_score_channels.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl = nmod.bucket_newton_stats.launches
+        sl = kmod.cl_score_channels.launches
+        launches["newton"] += nl
+        launches["score_c1"] += sl
+        return out, wall, nl, sl, plain_cuda_calls["n"]
+
+    # ---- the hostile star: crash, Byzantine, replay and drift at once ---
+    star = C.star_graph(6)
+    model = C.random_model(star, 0.5, 0.4, gen, device=dev)
+    ts = model.theta.cpu().numpy()
+    pool = C.exact_sample(model, 900, gen)
+    hostile = FaultPlan(
+        crashes=(CrashSpec(node=2, at=3, restart_at=8),),
+        byzantine=(ByzantineSpec(node=5, kind="scaled_noise", scale=1.0),),
+        replay=ReplaySpec(prob=0.4, delay=2),
+        drift=(DriftSpec(at=7, scale=0.3),))
+
+    def hostile_sim(**over):
+        kw = dict(scheme="diagonal", theta_star=ts,
+                  network=NetworkConfig(drop_prob=0.4, delay=1, jitter=1),
+                  arrivals=ArrivalSpec(kind="poisson", rate=30.0),
+                  capacity=128, seed=11, faults=hostile, window=400)
+        kw.update(over)
+        return StreamSimulator(star, pool, **kw)
+
+    newton_op = bmod.bucket_newton_stats_op
+    seen = {}   # (kind, design shape, weighted) -> that shape's last inputs
+    w_gen = torch.Generator(device=dev)     # the checks' W, apart from gen
+    w_gen.manual_seed(20120629)
+
+    def capturing(kind, Zb, base, xi, W, sw=None, **kw):
+        key = (kind, tuple(Zb.shape), sw is not None)
+        if Zb.is_cuda and key not in covered:
+            seen[key] = tuple(None if t is None else t.detach().clone()
+                              for t in (Zb, base, xi, W, sw))
+        return newton_op(kind, Zb, base, xi, W, sw, **kw)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    for label, over in (("one_step", {}),
+                        ("admm", dict(estimator="admm", newton_iters=8))):
+        full = hostile_sim(**over)
+        seen.clear()
+        bmod.bucket_newton_stats_op = capturing
+        try:
+            res_full, wall, nl, _, pc = counted(
+                lambda: full.run(HOSTILE_ROUNDS))
+        finally:
+            bmod.bucket_newton_stats_op = newton_op
+        for (kind, shape, weighted), (Zb, base, xi, W_run, sw) in sorted(
+                seen.items()):
+            k, Cb, d, n = shape
+            tag = (f"hostile star {label} bucket k={k} d={d} n={n} "
+                   f"weighted={weighted}")
+            # at the run's own converged iterate g cancels to near 0, so
+            # its relative error says nothing: shown, and the check itself
+            # draws W as phase 11's does
+            g1, K1 = nmod.bucket_newton_stats(kind, Zb, base, xi, W_run, sw)
+            g0, K0 = nmod.bucket_newton_stats_ref(kind, Zb, base, xi, W_run,
+                                                  sw)
+            print(f"  {tag}: at the run's last iterate |g| "
+                  f"{float(g0.norm()):.2e}, |kernel - plain| "
+                  f"{float((g1 - g0).norm()):.2e}, K rel "
+                  f"{rel_err(K1, K0):.2e}", flush=True)
+            W = 0.05 * torch.randn((k, d * Cb), generator=w_gen,
+                                   device=dev)
+            check_newton(tag, kind, Zb, base, xi, W, sw)
+        print(f"  hostile star {label}: the Newton kernel held against its "
+              f"plain version at {len(seen)} bucket shapes no earlier check "
+              f"covered", flush=True)
+        part = hostile_sim(**over)
+        part.run(HOSTILE_SAVE)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            CK.save_stream(d, HOSTILE_SAVE, part)
+            fresh = CK.restore_stream(d, hostile_sim(**over))
+        rest = fresh.run(HOSTILE_ROUNDS - HOSTILE_SAVE)
+        diff = max(
+            max(float(np.max(np.abs(rest.estimate_at(t)
+                                    - res_full.estimate_at(t))))
+                for t in range(HOSTILE_SAVE + 1, HOSTILE_ROUNDS + 1)),
+            float(np.max(np.abs(rest.err - res_full.err[HOSTILE_SAVE:]))))
+        same_net = fresh.net.counters_dict() == full.net.counters_dict()
+        gate(diff <= GATE_RESTORE and same_net
+             and bool(np.all(np.isfinite(res_full.err))) and nl >= 1
+             and pc == 0,
+             f"hostile star {label}: save_stream at round {HOSTILE_SAVE}, "
+             f"restore_stream into a fresh simulator, rounds "
+             f"{HOSTILE_SAVE + 1}..{HOSTILE_ROUNDS} against the "
+             f"uninterrupted run: largest difference {diff:.3e} (estimates "
+             f"and err), network counters equal {same_net}; {nl} Newton "
+             f"launches in {wall:.3f} s")
+        again = hostile_sim(**over).run(HOSTILE_ROUNDS)
+        gate(np.array_equal(again.theta, res_full.theta)
+             and np.array_equal(again.err, res_full.err),
+             f"hostile star {label}: two same-seed runs bitwise equal; MSE "
+             f"round 7 {res_full.err[6]:.4f} -> round 8 (drifted) "
+             f"{res_full.err[7]:.4f} -> round 12 {res_full.err[-1]:.4f}")
+        del full, part, fresh
+
+    # ---- field drift: a Gaussian MRF on the 64 x 64 grid ----------------
+    t0 = time.perf_counter()
+    theta = GAUSSIAN.random_params(g_field, gen, device=dev)
+    pool_g = GAUSSIAN.exact_sample(g_field, theta, 16384, gen)
+    torch.cuda.synchronize()
+    print(f"  field pool: 16384 exact rows of a {g_field.p}-node Gaussian "
+          f"MRF in {time.perf_counter() - t0:.2f} s", flush=True)
+    theta0 = theta.cpu().numpy()
+    plan_g = A.Plan(graph=g_field, family="gaussian",
+                    combiners=("diagonal",),
+                    faults=FaultPlan(drift=(DriftSpec(at=DRIFT_AT,
+                                                      scale=DRIFT_SCALE),)),
+                    stream_window=DRIFT_WINDOW)
+    sess_g = plan_g.session()
+
+    def field_sim():
+        return sess_g.simulate(pool_g, theta_star=theta0,
+                               arrivals=ArrivalSpec(rate=DRIFT_RATE))
+
+    def min_eig(th):
+        J = torch.as_tensor(GAUSSIAN._precision(g_field, th), device=dev)
+        return float(torch.linalg.eigvalsh(J)[0])
+
+    sim = field_sim()
+    drift_s = {}
+    apply_drift = sim._apply_drift
+
+    def timed_drift(spec):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apply_drift(spec)
+        torch.cuda.synchronize()
+        drift_s["wall"] = time.perf_counter() - t0
+
+    sim._apply_drift = timed_drift
+    walls, errs, thetas, newton, scores, clean = [], [], [], [], [], True
+    fed = None
+    for r in range(DRIFT_ROUNDS):
+        if r == DRIFT_AT:
+            fed = sim._fed
+        res, wall, nl, sl, pc = counted(
+            lambda: sim.run(1, record_score=True))
+        walls.append(wall)
+        errs.append(float(res.err[-1]))
+        thetas.append(res.theta[-1])
+        newton.append(nl)
+        scores.append(sl)
+        clean &= nl >= 1 and sl == 1 and pc == 0 \
+            and bool(np.isfinite(res.score_norm[-1]))
+    moved = np.flatnonzero(sim.theta_star != theta0)
+    n_tail = len(pool_g) - fed
+    redrawn = not torch.equal(sim.pool[fed:], pool_g[fed:])
+    gate(torch.equal(sim.pool[:fed], pool_g[:fed]) and redrawn
+         and 0 < len(moved) and set(moved.tolist()) <= set(
+             sim.free.tolist()),
+         f"field drift at round {DRIFT_AT}: the {fed} rows fed before it "
+         f"unchanged bitwise, the {n_tail} unseen rows re-drawn {redrawn}; "
+         f"theta_star moved at {len(moved)} of {len(sim.free)} free "
+         f"coordinates and nowhere else")
+    eig0, eig1 = min_eig(theta0), min_eig(sim.theta_star)
+    t0 = time.perf_counter()
+    drifted = GAUSSIAN.moments(g_field, sim.theta_star)
+    t_moments = time.perf_counter() - t0
+    e = np.asarray(g_field.edges)
+    ei = torch.as_tensor(e, device=dev)
+
+    def law(mu, Sigma):
+        """The exact means and edge second moments, and their variances."""
+        i, j = e[:, 0], e[:, 1]
+        exact = np.concatenate([mu, Sigma[i, j] + mu[i] * mu[j]])
+        var = np.concatenate([
+            np.diag(Sigma),
+            Sigma[i, i] * Sigma[j, j] + Sigma[i, j] ** 2
+            + mu[i] ** 2 * Sigma[j, j] + mu[j] ** 2 * Sigma[i, i]
+            + 2 * mu[i] * mu[j] * Sigma[i, j]])
+        return exact, var
+
+    def empirical(rows):
+        rows = rows.double()
+        return torch.cat([rows.mean(0), (rows[:, ei[:, 0]]
+                                         * rows[:, ei[:, 1]]).mean(0)]
+                         ).cpu().numpy()
+
+    def misfit(emp, exact_var):
+        """(max |empirical - exact| sqrt(n), the mean of the squared
+        standardised errors)."""
+        exact, var = exact_var
+        z = (emp - exact) * np.sqrt(n_tail)
+        return float(np.max(np.abs(z))), float(np.mean(z ** 2 / var))
+
+    law1 = law(*drifted)
+    law0 = law(*GAUSSIAN.moments(g_field, theta0))
+    emp_new = empirical(sim.pool[fed:])
+    emp_old = empirical(pool_g[fed:])
+    fit = misfit(emp_new, law1)
+    ctl_old, ctl_law = misfit(emp_old, law1), misfit(emp_new, law0)
+    shift = float(np.mean((law1[0] - law0[0]) ** 2 * n_tail / law1[1]))
+    sd = float(np.sqrt(law1[1].max()))
+    gate(eig1 > 0 and fit[0] <= MOMENT_TOL["gaussian"]
+         and fit[1] <= GATE_TAIL_Z2 < min(ctl_old[1], ctl_law[1]),
+         f"field drift: smallest eigenvalue of I - T {eig0:.4f} before the "
+         f"jump, {eig1:.4f} after; the {n_tail} re-drawn rows' means and "
+         f"edge second moments against the drifted exact moments: max "
+         f"{fit[0]:.3f} / sqrt(n) (gate {MOMENT_TOL['gaussian']}, the "
+         f"Gaussian conformance tolerance; largest standard deviation "
+         f"{sd:.3f}; controls: the original tail against the drifted law "
+         f"{ctl_old[0]:.3f}, the re-drawn tail against the undrifted law "
+         f"{ctl_law[0]:.3f}), mean squared standardised error {fit[1]:.4f} "
+         f"(gate {GATE_TAIL_Z2}; controls {ctl_old[1]:.4f} and "
+         f"{ctl_law[1]:.4f}, above the gate; the jump's exact shift "
+         f"{shift:.4f})")
+    del emp_new, emp_old
+    gate(clean and bool(np.all(np.isfinite(errs))),
+         f"field drift: Newton launches per round {newton}, one score "
+         f"launch per recorded round, no plain version on a CUDA tensor, "
+         f"every err finite")
+    print(f"  field drift: drift step wall {drift_s['wall']:.3f} s (host "
+          f"moments {t_moments:.3f} s, timed alone after the run; the "
+          f"Cholesky and the draw the rest), in a round of "
+          f"{walls[DRIFT_AT]:.3f} s; median round wall "
+          f"{statistics.median(walls):.4f} s (range {min(walls):.4f}-"
+          f"{max(walls):.4f}); MSE round {DRIFT_AT} {errs[DRIFT_AT - 1]:.4f}"
+          f" -> round {DRIFT_AT + 1} (drifted truth) {errs[DRIFT_AT]:.4f} "
+          f"-> round {DRIFT_ROUNDS} {errs[-1]:.4f}; Newton launches "
+          f"{sum(newton)}, score launches {sum(scores)}", flush=True)
+    del sim
+    sim_p = field_sim()
+    sim_p.est.refit = functools.partial(sim_p.est.refit, use_kernel=False)
+    sim_p.est.score_norm = functools.partial(sim_p.est.score_norm,
+                                             use_kernel=False)
+    plain_cuda_calls["n"] = 0
+    t0 = time.perf_counter()
+    res_p = sim_p.run(DRIFT_ROUNDS, record_score=True)
+    torch.cuda.synchronize()
+    wall_p = time.perf_counter() - t0
+    dth = float(np.max(np.abs(res_p.theta - np.stack(thetas))))
+    derr = float(np.max(np.abs(res_p.err - np.asarray(errs))))
+    gate(dth <= GATE_TRAJECTORY and derr <= GATE_TRAJECTORY
+         and plain_cuda_calls["n"] > 0,
+         f"field drift with use_kernel=False: trajectory max diff {dth:.2e}"
+         f", err max diff {derr:.2e} ({plain_cuda_calls['n']} plain calls, "
+         f"{wall_p:.2f} s for {DRIFT_ROUNDS} rounds against "
+         f"{sum(walls):.2f} s through the kernels)")
+    del sim_p, res_p, pool_g
+    torch.cuda.empty_cache()
+
+    # ---- an Ising family registered without a fused epilogue ------------
+    @dataclasses.dataclass(frozen=True)
+    class PlainIsing(IsingFamily):
+        name: str = "ising_plain"
+
+        @property
+        def kernel_kind(self):
+            return None
+
+    register_family(PlainIsing())
+    for tag, g, X in (("euclidean p=100 n=4000", g_eu, X_eu),
+                      (f"field p={g_field.p} n=16384", g_field,
+                       X_field[:16384])):
+        sess_k = A.Plan(graph=g, family="ising",
+                        combiners=("diagonal",)).session()
+        sess_p = A.Plan(graph=g, family="ising_plain",
+                        combiners=("diagonal",)).session()
+        cold_k = counted(lambda: sess_k.fit(X))[1]
+        cold_p = counted(lambda: sess_p.fit(X))[1]
+        rk, wall_k, nl_a, sl_k, pc_k = counted(lambda: sess_k.fit(X))
+        rp, wall_p, nl_p, sl_p, pc_p = counted(lambda: sess_p.fit(X))
+        _, _, nl_b, _, _ = counted(lambda: sess_k.fit(X))
+        dth = max(float(np.max(np.abs(a.theta - b.theta)))
+                  for a, b in zip(rk.fits, rp.fits))
+        dth = max(dth, float(np.max(np.abs(rk.theta - rp.theta))))
+        dscore = abs(rp.score_norm - rk.score_norm) / abs(rk.score_norm)
+        gate(dth <= GATE_THETA and dscore <= 1e-4 and nl_p == 0
+             and sl_p == 0 and pc_p == 0 and nl_a == nl_b >= 1
+             and sl_k == 1 and pc_k == 0,
+             f"epilogue-less Ising, {tag}: closed-form fit against the "
+             f"registered Ising's kernel fit, theta max diff {dth:.2e}; "
+             f"autodiff score norm {rp.score_norm:.6e} against the score "
+             f"kernel's {rk.score_norm:.6e} (rel {dscore:.2e}); Newton "
+             f"launches {nl_p} (kernel fits {nl_a}, {nl_b}), score launches "
+             f"{sl_p}; warm fit wall {wall_p:.4f} s closed form against "
+             f"{wall_k:.4f} s through the kernels (cold {cold_p:.3f} / "
+             f"{cold_k:.3f} s)")
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1829,6 +2194,8 @@ def main() -> int:
             time_newton)
     phase11(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
             dev, check_newton, covered)
+    phase12(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, g_eu, paper[0][5], g_field, X_field, check_newton, covered)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

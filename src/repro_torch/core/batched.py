@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..kernels.cl.epilogues import get_epilogue
 from ..kernels.cl.ops import bucket_newton_stats_op
 from .estimators import LocalFit
 from .families import ISING
@@ -187,12 +188,14 @@ def _channel_ops(family, Zb, base, xi, sw, weighted, denom,
 
     C == 1 keeps the single-channel matmul forms. Returns
     ``(score_curvature, curvature_matrix, avg_loglik, score_matrix,
-    newton_stats)``; ``newton_stats`` is the per-iteration hot path through
-    the fused kernel dispatch (a family without a registered epilogue
-    raises there), and reads the design in its own type. The other
-    closures contract in the solver type (``denom``'s): a bfloat16 design is
-    promoted once here, where the reference's type promotion did it per
-    contraction.
+    newton_stats)``; ``newton_stats`` is the per-iteration hot path. A
+    family whose ``kernel_kind`` has a registered epilogue takes it through
+    the fused kernel dispatch, which reads the design in its own type; a
+    family without one takes the closed-form hooks, ``grad_vec(r)`` and
+    ``curvature_matrix(kap)``, as the reference's engine does. The choice
+    depends on the family alone. The other closures contract in the solver
+    type (``denom``'s): a bfloat16 design is promoted once here, where the
+    reference's type promotion did it per contraction.
     """
     k, C, d, _ = Zb.shape
     dC = d * C
@@ -214,6 +217,11 @@ def _channel_ops(family, Zb, base, xi, sw, weighted, denom,
             r = r * sw[:, None, :]
             kap = kap * sw[:, None, None, :]
         return r, kap
+
+    def grad_vec(r):
+        if C == 1:
+            return torch.einsum("kdn,kn->kd", Z1, r[:, 0])
+        return torch.einsum("kcdn,kcn->kdc", Zb, r).reshape(k, dC)
 
     def curvature_matrix(kap):
         if C == 1:
@@ -241,10 +249,16 @@ def _channel_ops(family, Zb, base, xi, sw, weighted, denom,
         n = Zb.shape[-1]
         return (Zb * r[:, :, None, :]).permute(0, 2, 1, 3).reshape(k, dC, n)
 
+    kind = getattr(family, "kernel_kind", None)
+    fused_kind = kind if get_epilogue(kind) is not None else None
+
     def newton_stats(W):
-        return bucket_newton_stats_op(family.kernel_kind, *kernel_in, W,
-                                      sw if weighted else None,
-                                      use_kernel=use_kernel)
+        if fused_kind is not None:
+            return bucket_newton_stats_op(fused_kind, *kernel_in, W,
+                                          sw if weighted else None,
+                                          use_kernel=use_kernel)
+        r, kap = score_curvature(W)
+        return grad_vec(r), curvature_matrix(kap)
 
     return score_curvature, curvature_matrix, avg_loglik, score_matrix, \
         newton_stats

@@ -28,9 +28,10 @@ Fault semantics (the "liar on the wire" model):
   and are deduplicated receiver-side by the freshest-version-wins rule.
 * **drift** — at each change-point the environment's true parameter jumps
   by a random perturbation and the *unseen* remainder of the sample pool
-  is re-drawn from the drifted model. The schema carries it; the port's
-  simulator refuses a plan with drift until the exact samplers are ported
-  (the sampler slice).
+  is re-drawn from the drifted model (``family.exact_sample``); rows a
+  sensor has already seen keep their values. The draws are keyed off the
+  simulator's seed and the change-point round alone, so a restored
+  simulator re-draws the same tail.
 """
 from __future__ import annotations
 

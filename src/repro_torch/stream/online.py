@@ -237,7 +237,9 @@ def pseudo_score(graph: Graph, theta: np.ndarray, x_pad, n_seen: int,
 
     Families whose ``kernel_kind`` has a registered epilogue (Ising,
     Gaussian, Potts) run one fused pass (see
-    :func:`repro_torch.kernels.cl.family.fused_pseudo_score`).
+    :func:`repro_torch.kernels.cl.family.fused_pseudo_score`); families
+    without one take the autodiff score ``family.pseudo_score`` over the
+    live rows (float32, on ``x_pad``'s device), as the reference does.
     """
     if family is None:
         family = ISING
@@ -245,8 +247,6 @@ def pseudo_score(graph: Graph, theta: np.ndarray, x_pad, n_seen: int,
     if n_seen <= 0:
         return np.zeros(family.n_params(graph))
     if get_epilogue(getattr(family, "kernel_kind", None)) is None:
-        raise NotImplementedError(
-            f"family {family.name!r} has no fused-kernel epilogue; the "
-            f"autodiff pseudo-score comes with the sampler slice of the port")
+        return family.pseudo_score(graph, theta, x_pad[: int(n_seen)])
     return fused_pseudo_score(family, graph, theta, x_pad, n_seen,
                               use_kernel=use_kernel)

@@ -17,9 +17,10 @@ Discrete rounds; each round:
 
 ``run`` records an error/communication trajectory; ``StreamResult.
 estimate_at(t)`` answers "what would the network report if queried at round
-t". The port carries crash, Byzantine and replay faults; parameter drift
-needs the exact samplers and comes with the sampler slice, telemetry with
-the telemetry slice.
+t". The port carries crash, Byzantine, replay and drift faults; a drift
+change-point jumps the truth and re-draws the unseen pool from the drifted
+model with ``family.exact_sample``, keyed statelessly off the seed and the
+change-point round. Telemetry comes with the telemetry slice.
 """
 from __future__ import annotations
 
@@ -198,11 +199,10 @@ class StreamSimulator:
                         f"fault spec names node {spec.node}, but the "
                         f"graph has only {graph.p} nodes (0.."
                         f"{graph.p - 1})")
-            if self.faults.drift:
-                raise NotImplementedError(
-                    "parameter drift is not ported yet: re-drawing the "
-                    "unseen pool needs the exact samplers, which come with "
-                    "the sampler slice of the PyTorch port")
+            if self.faults.drift and theta_star is None:
+                raise ValueError(
+                    "parameter drift needs theta_star (the truth to "
+                    "perturb); pass theta_star= to the simulator")
         self.est = StreamingEstimator(graph, include_singleton, theta_fixed,
                                       capacity=capacity, n_iter=newton_iters,
                                       family=self.family,
@@ -210,7 +210,7 @@ class StreamSimulator:
                                       window=window, discount=discount,
                                       device=device)
         #: the environment pool, float32 on the simulator's device
-        self.pool = as_device_rows(pool, torch.float32, self.est.device)
+        self.pool = self._own_pool(pool)
         self.estimator = estimator
         self.scheme = scheme
         self.include_singleton = include_singleton
@@ -224,15 +224,15 @@ class StreamSimulator:
         self.arrivals = arrivals
         self.refit_every = max(int(refit_every), 1)
         self.newton_iters = newton_iters
-        # one seed: arrivals, network and fault draws each get an
-        # independent stream derived from it (the fourth, the reference's
-        # drift stream, is drawn and unused)
+        # one seed: arrivals, network, fault draws and drift each get an
+        # independent stream derived from it
         self.seed = int(seed)
-        s_arr, s_net, s_fault, _ = (
+        s_arr, s_net, s_fault, s_drift = (
             int(v) for v in np.random.SeedSequence(self.seed)
             .generate_state(4))
         self._arr_rng = np.random.RandomState(s_arr)
         self._fault_rng = np.random.RandomState(s_fault)
+        self._drift_seed = s_drift
 
         links = [(i, j) for (a, b) in graph.edges for (i, j) in ((a, b),
                                                                 (b, a))]
@@ -313,9 +313,60 @@ class StreamSimulator:
         return np.array([self.faults.crashed(i, rnd)
                          for i in range(self.graph.p)])
 
+    def _own_pool(self, pool) -> torch.Tensor:
+        """``pool`` as float32 rows on the simulator's device. Drift
+        re-draws the unseen tail in place, and ``as_device_rows`` may hand
+        back the caller's own storage, so with drift the simulator keeps a
+        private copy."""
+        rows = as_device_rows(pool, torch.float32, self.est.device)
+        if self.faults is not None and self.faults.drift:
+            rows = rows.clone()
+        return rows
+
+    def _drift_draw(self, spec, tail: int):
+        """The draws of one change-point: the (len(free),) float64 jump,
+        from a CPU generator so the truth does not depend on the device,
+        and ``tail`` rows from the drifted model on the pool's device.
+        Both generators are seeded from (drift seed, ``spec.at``) alone.
+        Returns (the drifted theta_star, rows)."""
+        s_delta, s_rows = np.random.SeedSequence(
+            [self._drift_seed, int(spec.at)]).generate_state(2)
+        gen = torch.Generator()
+        gen.manual_seed(int(s_delta))
+        delta = spec.scale * torch.randn(len(self.free), generator=gen,
+                                         dtype=torch.float64).numpy()
+        theta = self.theta_star.copy()
+        theta[self.free] += delta
+        rows = None
+        if tail > 0:
+            dev = self.pool.device
+            gen_rows = torch.Generator(device=dev)
+            gen_rows.manual_seed(int(s_rows))
+            rows = self.family.exact_sample(
+                self.graph, torch.as_tensor(theta, device=dev), tail,
+                gen_rows)
+        return theta, rows
+
+    def _apply_drift(self, spec) -> None:
+        """Change-point: jump theta_star at the free coordinates and
+        re-draw the unseen pool tail from the drifted model; rows already
+        fed keep their values. Keyed statelessly off the drift stream and
+        the change-point round, so a restored simulator that already
+        passed the change-point needs no extra RNG state."""
+        tail = len(self.pool) - self._fed
+        theta, rows = self._drift_draw(spec, tail)
+        self.theta_star = np.asarray(theta, dtype=np.float64)
+        if tail > 0:
+            self.pool[self._fed:] = torch.as_tensor(rows).to(
+                device=self.pool.device, dtype=torch.float32)
+
     def step(self) -> None:
         rnd = self.round
         p = self.graph.p
+        if self.faults is not None:
+            spec = self.faults.drift_at(rnd)
+            if spec is not None:
+                self._apply_drift(spec)
         # 1. arrivals: reveal new environment samples to each sensor (drawn
         # for every node every round so the arrival stream does not depend
         # on the crash schedule; a crashed sensor just samples none)
@@ -609,8 +660,7 @@ class StreamSimulator:
                 f"{meta['estimator']}/{meta['scheme']} simulator; this one "
                 f"is {self.estimator}/{self.scheme}")
         self.est.load_state(arrays, meta)
-        self.pool = as_device_rows(np.asarray(arrays["sim/pool"]),
-                                   torch.float32, self.est.device)
+        self.pool = self._own_pool(np.asarray(arrays["sim/pool"]))
         if "sim/theta_star" in arrays:
             self.theta_star = np.asarray(arrays["sim/theta_star"]).copy()
         if self.estimator == "admm":

@@ -78,11 +78,14 @@ def test_comm_accounting_matches_reference():
             rcosts.one_step_comm_by_scheme(19, names, n)
 
 
-def test_family_without_epilogue_raises_in_local_fits():
-    """The Newton statistics always go through the kernel dispatch: a family
-    with no registered epilogue raises there instead of taking a plain path."""
+def test_family_without_epilogue_raises_in_local_fits(monkeypatch):
+    """A family with no registered epilogue no longer raises: its Newton
+    statistics come from the closed-form hooks, as in the reference's
+    engine, and never reach the kernel dispatch; the fits equal those of
+    the registered Ising family."""
     import dataclasses
 
+    from repro_torch.core import batched as bmod
     from repro_torch.core.batched import fit_all_local_batched
     from repro_torch.core.families.ising import IsingFamily
 
@@ -97,5 +100,17 @@ def test_family_without_epilogue_raises_in_local_fits():
     graph = TC.star_graph(4)
     X = torch.from_numpy(np.random.RandomState(3).choice(
         [-1.0, 1.0], size=(65, graph.p)))
-    with pytest.raises(ValueError, match="no epilogue"):
-        fit_all_local_batched(graph, X, family=NoKernel())
+    want = fit_all_local_batched(graph, X, family=TC.ISING)
+    calls = []
+    dispatch = bmod.bucket_newton_stats_op
+
+    def counted(*args, **kwargs):
+        calls.append(args[0])
+        return dispatch(*args, **kwargs)
+
+    monkeypatch.setattr(bmod, "bucket_newton_stats_op", counted)
+    got = fit_all_local_batched(graph, X, family=NoKernel())
+    assert calls == []
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.theta, b.theta, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(a.V, b.V, rtol=0, atol=1e-10)

@@ -79,6 +79,59 @@ def test_every_module_imports_and_fits_without_jax_or_reference():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_drift_checkpoints_and_plain_families_run_without_jax_or_reference(
+        tmp_path):
+    """A drifting simulate, its save_stream/restore_stream across the
+    change-point, and the fit of a family registered without a fused-kernel
+    epilogue, in a process where importing jax or repro fails."""
+    code = textwrap.dedent(f"""
+        import dataclasses, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import numpy as np
+        import repro_torch
+        import repro_torch.api as A
+        import repro_torch.checkpoint as CK
+        import repro_torch.stream as S
+        from repro_torch.core import grid_graph
+        from repro_torch.core.families import IsingFamily, register_family
+        g = grid_graph(2, 2)
+        X = np.where(np.random.RandomState(0).rand(256, 4) < 0.5, 1.0, -1.0)
+        fp = S.FaultPlan(drift=(S.DriftSpec(at=2, scale=0.3),))
+        def mk():
+            return A.Plan(graph=g, faults=fp).session(
+                device="cpu").simulate(X, theta_star=np.zeros(8),
+                                       arrivals=S.ArrivalSpec(rate=16))
+        full = mk().run(4)
+        part = mk()
+        part.run(1)
+        CK.save_stream({str(tmp_path)!r}, 1, part)
+        rest = CK.restore_stream({str(tmp_path)!r}, mk()).run(3)
+        assert np.array_equal(rest.theta, full.theta[1:])
+
+        @dataclasses.dataclass(frozen=True)
+        class Plain(IsingFamily):
+            name: str = "ising_plain"
+
+            @property
+            def kernel_kind(self):
+                return None
+
+        register_family(Plain())
+        res = A.Plan(graph=g, family="ising_plain").session(
+            device="cpu").fit(X)
+        assert np.all(np.isfinite(res.theta)) and np.isfinite(res.score_norm)
+        loaded = [m for m in sys.modules if m.startswith(("jax.", "repro."))]
+        assert not loaded, loaded
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PKG.rglob("*.py")]
     + ["chip_smoke.py"]))
@@ -138,21 +191,29 @@ _DRIFT = TS.FaultPlan(drift=(TS.DriftSpec(at=2),))
     "telemetry in simulate", "telemetry in StreamSimulator",
     "mesh in StreamSimulator", "mesh in simulate"])
 def test_later_slice_stream_options_refuse(case):
-    """Drift needs the exact samplers, telemetry and mesh their slices: the
-    streaming verbs refuse them and name what they wait for."""
+    """Telemetry and mesh wait for their slices: the streaming verbs refuse
+    them and name what they wait for. Drift, ported with the drift slice,
+    is accepted, and a round across the change-point runs."""
     graph = grid_graph(2, 2)
-    pool = np.ones((64, 4))
+    pool = np.where(np.random.RandomState(5).rand(64, 4) < 0.5, 1.0, -1.0)
     theta = np.zeros(8)
     sess = TA.Plan(graph=graph).session(device="cpu")
+    runs = {
+        "drift in simulate": lambda: TA.Plan(
+            graph=graph, faults=_DRIFT).session(device="cpu").simulate(
+                pool, theta_star=theta, arrivals=TS.ArrivalSpec(rate=8)),
+        "drift plan in StreamSimulator": lambda: TS.StreamSimulator(
+            graph, pool, faults=_DRIFT, theta_star=theta,
+            arrivals=TS.ArrivalSpec(rate=8), device="cpu"),
+    }
+    if case in runs:
+        sim = runs[case]()
+        assert sim.faults == _DRIFT
+        res = sim.run(3)
+        assert np.all(np.isfinite(res.theta)) and res.err.shape == (3,)
+        assert not np.array_equal(sim.theta_star, theta)
+        return
     raises = {
-        "drift in simulate": (
-            NotImplementedError, "sampler slice",
-            lambda: TA.Plan(graph=graph, faults=_DRIFT).session(
-                device="cpu").simulate(pool, theta_star=theta)),
-        "drift plan in StreamSimulator": (
-            NotImplementedError, "sampler slice",
-            lambda: TS.StreamSimulator(graph, pool, faults=_DRIFT,
-                                       theta_star=theta, device="cpu")),
         "telemetry in simulate": (
             NotImplementedError, "telemetry slice",
             lambda: sess.simulate(pool, telemetry={})),
