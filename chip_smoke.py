@@ -102,7 +102,21 @@ Phases:
      an Ising family registered with no epilogue fitted on phase 4's
      Euclidean rows and the field rows against the registered Ising's
      kernel fit (theta 1e-4, score norm 1e-4 relative, no Newton or score
-     launch of its own), both walls printed.
+     launch of its own), both walls printed;
+ 13. the seed score entry points and telemetry: every cl_score* entry,
+     score_stats_op and family_score_stats for Ising, Gaussian and Potts
+     (q = 3) against the plain versions at the reference's conformance
+     shapes (max abs within PRECISION_TOLERANCES["float32"]), the paper
+     shape and the field grid's zero-padded buffer (capacity 16384, 12288
+     live rows; GATE_ELEM / GATE_STATS), one score launch per call and no
+     plain version on a CUDA tensor; a warm field fit with telemetry on
+     against off (outputs and launch counts bitwise equal, spans, cuda
+     kernel tags on a fresh session's cold fit and none warm, the median
+     of 5 warm fits each way); joint and select on the structure bench's
+     5 x 6 grid with telemetry on against off; the hostile star of phase
+     12 (one-step and ADMM) with a JSONL log whose replay equals the live
+     network counters; a profile_dir trace naming the Newton and score
+     kernels.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -1374,6 +1388,383 @@ def phase12(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase13(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, g_eu, X_eu, g_field, X_field, check_newton, covered):
+    """The seed score entry points and telemetry on the card: every
+    ``cl_score*`` entry, ``score_stats_op`` and ``family_score_stats``
+    against the plain versions with one score launch per call; a warm field
+    fit, joint and select at the structure bench's size and the hostile
+    star with telemetry on, each bitwise equal to its telemetry-off run,
+    with the Newton kernel held against its plain version (phase 3's check)
+    at every bucket shape of those runs that no earlier check covered; the
+    JSONL replay of the star's network ledger; a ``profile_dir`` trace."""
+    import contextlib
+    import tempfile
+
+    import repro_torch.core as C
+    import repro_torch.core.batched as bmod
+    import repro_torch.kernels.cl as TK
+    from repro_torch.kernels.cl import ref as rmod
+    from repro_torch.stream import (ArrivalSpec, ByzantineSpec, CrashSpec,
+                                    DriftSpec, FaultPlan, NetworkConfig,
+                                    ReplaySpec, StreamSimulator)
+    from repro_torch.telemetry import (TelemetrySpec, read_events,
+                                       replay_network_counters)
+
+    t_phase = time.perf_counter()
+    print(f"phase 13: the seed score entry points and telemetry ({smi})",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20120630)
+    tol32 = TK.precision_tolerance("float32")
+
+    def counted(fn):
+        """fn() on the kernel path, every count set to 0 just before and
+        read just after: (result, wall s, Newton launches, score launches,
+        plain calls on CUDA tensors)."""
+        nmod.bucket_newton_stats.launches = 0
+        kmod.cl_score_channels.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (out, wall, nmod.bucket_newton_stats.launches,
+                kmod.cl_score_channels.launches, plain_cuda_calls["n"])
+
+    newton_op = bmod.bucket_newton_stats_op
+    seen = {}   # (kind, design shape, weighted) -> that shape's last inputs
+    w_gen = torch.Generator(device=dev)     # the checks' W, apart from gen
+    w_gen.manual_seed(20120631)
+
+    def capturing(kind, Zb, base, xi, W, sw=None, **kw):
+        key = (kind, tuple(Zb.shape), sw is not None)
+        if Zb.is_cuda and key not in covered:
+            seen[key] = tuple(None if t is None else t.detach().clone()
+                              for t in (Zb, base, xi, W, sw))
+        return newton_op(kind, Zb, base, xi, W, sw, **kw)
+
+    @contextlib.contextmanager
+    def capture():
+        """Keep the inputs of every Newton launch at a bucket shape no
+        earlier check covered."""
+        bmod.bucket_newton_stats_op = capturing
+        try:
+            yield
+        finally:
+            bmod.bucket_newton_stats_op = newton_op
+
+    def hold_uncovered(label):
+        """Phase 3's check at every captured shape, with W drawn as phase
+        11's is: at a run's converged iterate g cancels to near 0."""
+        n_shapes = len(seen)
+        for (kind, shape, weighted), (Zb, base, xi, _, sw) in sorted(
+                seen.items()):
+            k, Cb, d, n = shape
+            W = 0.05 * torch.randn((k, d * Cb), generator=w_gen, device=dev)
+            check_newton(f"{label} bucket k={k} C={Cb} d={d} n={n} "
+                         f"weighted={weighted}", kind, Zb, base, xi, W, sw)
+        seen.clear()
+        torch.cuda.empty_cache()
+        print(f"  {label}: the Newton kernel held against its plain version "
+              f"at {n_shapes} bucket shapes no earlier check covered",
+              flush=True)
+
+    # ---- (a) the entry points against their plain versions --------------
+    def inputs(kind, n, p, Cd):
+        if kind == "potts":
+            x = torch.randint(0, Cd + 1, (n, p), generator=gen, device=dev)
+            F = torch.stack([(x == c + 1).float() for c in range(Cd)])
+        elif kind == "gaussian":
+            F = torch.randn((1, n, p), generator=gen, device=dev)
+        else:
+            F = torch.where(torch.rand((1, n, p), generator=gen,
+                                       device=dev) < .5, 1., -1.)
+        th = 0.3 * torch.randn((Cd, p, p), generator=gen, device=dev)
+        th = ((th + th.transpose(1, 2)) / 2).contiguous()
+        mask = torch.triu((torch.rand((p, p), generator=gen, device=dev)
+                           < .3).float(), 1)
+        mask = (mask + mask.T).contiguous()
+        bias = 0.1 * torch.randn((Cd, p), generator=gen, device=dev)
+        return F, th, mask, bias
+
+    #: calls made, the largest max-abs error at the conformance shapes and
+    #: the largest relative errors (eta and r, S) elsewhere
+    worst = {"calls": 0, "abs": 0.0, "elem": 0.0, "stats": 0.0}
+
+    def check_entry(tag, call, want, n_live, conformance):
+        """One entry-point call: one score launch, no plain version on a
+        CUDA tensor, and its (eta, r, S) against the plain ``want``; a
+        failing call prints its own FAIL line."""
+        (eta, r, S), _, nl, sl, pc = counted(call)
+        launches["score_c1" if eta.dim() == 2 or eta.shape[0] == 1
+                 else "score_cn"] += sl
+        worst["calls"] += 1
+        if eta.dim() == 2:
+            eta, r = eta[:n_live], r[:n_live]
+        else:
+            eta, r = eta[:, :n_live], r[:, :n_live]
+        got = (eta, r, S)
+        if conformance:
+            err = max(abs_err(g, w) for g, w in zip(got, want))
+            worst["abs"] = max(worst["abs"], err)
+            ok = err <= tol32
+            what = f"max abs {err:.2e} (tolerance {tol32:g})"
+        else:
+            ee, er, eS = (rel_err(g, w) for g, w in zip(got, want))
+            worst["elem"] = max(worst["elem"], ee, er)
+            worst["stats"] = max(worst["stats"], eS)
+            ok = ee <= GATE_ELEM and er <= GATE_ELEM and eS <= GATE_STATS
+            what = f"rel eta {ee:.2e} r {er:.2e} S {eS:.2e}"
+        ok = ok and sl == 1 and nl == 0 and pc == 0
+        if not ok:
+            gate(False, f"entry {tag}: {what}; score launches {sl}, plain "
+                 f"calls on CUDA tensors {pc}")
+        return ok
+
+    shapes = [(n, p, True) for n, p in ((32, 10), (130, 128), (200, 150),
+                                        (5, 260))]
+    shapes += [(4000, 100, False), (16384, 4096, False)]
+    fails = 0
+    for n_cap, p, conformance in shapes:
+        # the last shape is the field grid's zero-padded buffer: capacity
+        # 16384 holding 12288 rows; elsewhere the padded entries get a
+        # buffer of twice the rows
+        n_live = 12288 if n_cap == 16384 else n_cap
+        cap = n_cap if n_cap == 16384 else 2 * n_cap
+        for kind, Cd in (("ising", 1), ("gaussian", 1), ("potts", 2)):
+            F, th, mask, bias = inputs(kind, n_live, p, Cd)
+            F_pad = torch.zeros((Cd, cap, p), device=dev)
+            F_pad[:, :n_live] = F
+            calls = []
+            if Cd == 1:
+                x, x_pad, t1, b1 = F[0], F_pad[0], th[0], bias[0]
+                want = rmod.cl_score_ref(x, t1, mask, b1, kind=kind)
+                calls += [
+                    ("cl_score", lambda: TK.cl_score(x, t1, mask, b1,
+                                                     kind=kind)),
+                    ("score_stats_op", lambda: TK.score_stats_op(
+                        x, t1, mask, b1, kind=kind)),
+                    ("cl_score_padded", lambda: TK.cl_score_padded(
+                        x_pad, t1, mask, b1, n_live, kind=kind))]
+                if kind == "ising":
+                    calls += [
+                        ("ising_cl_score", lambda: TK.ising_cl_score(
+                            x, t1, mask, b1)),
+                        ("ising_cl_score_padded",
+                         lambda: TK.ising_cl_score_padded(
+                             x_pad, t1, mask, b1, n_live))]
+            else:
+                want = rmod.cl_score_channels_ref(F, th, mask, bias, kind)
+                try:
+                    TK.cl_score(F[0], th[0], mask, bias[0], kind=kind)
+                    refused = False
+                except ValueError:
+                    refused = True
+                if not refused:
+                    gate(False, f"cl_score accepted the multi-channel "
+                         f"kind {kind}")
+            calls.append(("cl_score_channels_padded",
+                          lambda: TK.cl_score_channels_padded(
+                              F_pad, th, mask, bias, n_live, kind=kind)))
+            for name, call in calls:
+                tag = f"{name} {kind} n={n_live} (buffer {cap}) p={p}"
+                fails += not check_entry(tag, call, want, n_live,
+                                         conformance)
+            del F, th, mask, bias, F_pad, want
+    # family_score_stats on the paper graph and the field's padded buffer
+    fam_graphs = (("paper", g_eu, X_eu, X_eu.shape[0]),
+                  ("field buffer", g_field, X_field[:16384], 12288))
+    for label, g, X, n_live in fam_graphs:
+        for name in ("ising", "gaussian", "potts"):
+            fam = C.get_family(name)
+            theta = (0.2 * torch.randn(fam.n_params(g), generator=gen,
+                                       device=dev, dtype=torch.float64))
+            if name == "ising":
+                Xs = X.clone()
+            elif name == "gaussian":
+                Xs = torch.randn(X.shape, generator=gen, device=dev)
+            else:
+                Xs = torch.randint(0, 3, X.shape, generator=gen,
+                                   device=dev).float()
+            Xs[n_live:] = 0.0
+            want = rmod.cl_score_channels_ref(
+                *TK.family_kernel_inputs(fam, g, theta, Xs),
+                fam.kernel_kind)
+            fails += not check_entry(
+                f"family_score_stats {name} {label} p={g.p}",
+                lambda: TK.family_score_stats(fam, g, theta, Xs), want,
+                Xs.shape[0], False)
+            del Xs, want
+    torch.cuda.empty_cache()
+    gate(fails == 0, f"entry points: {worst['calls']} calls at the "
+         f"conformance, paper and field-buffer shapes (ising, gaussian, "
+         f"potts q=3), {fails} failed; each one score launch and no plain "
+         f"version on a CUDA tensor; largest max-abs error at the "
+         f"conformance shapes {worst['abs']:.2e} (tolerance {tol32:g}), "
+         f"largest relative error elsewhere eta/r {worst['elem']:.2e}, S "
+         f"{worst['stats']:.2e}")
+
+    # ---- (b) warm field fit, telemetry on and off -----------------------
+    Xf = X_field[:16384]
+    plan = A.Plan(graph=g_field, family="ising", combiners=FIELD_COMBINERS)
+    off = plan.session()
+    on = plan.replace(telemetry=TelemetrySpec()).session()
+    with capture():
+        cold, _, nl_c, sl_c, _ = counted(lambda: on.fit(Xf))
+    hold_uncovered("field fit")
+    launches["newton"] += nl_c
+    launches["score_c1"] += sl_c
+    tags = [e for e in cold.telemetry.events if e["kind"] == "event"]
+    walls = {"off": [], "on": []}
+    runs = {}
+    for _ in range(5):
+        for key, sess in (("off", off), ("on", on)):
+            res, wall, nl, sl, pc = counted(lambda: sess.fit(Xf))
+            walls[key].append(wall)
+            runs[key] = (res, nl, sl, pc)
+            launches["newton"] += nl
+            launches["score_c1"] += sl
+    (r_off, nl_off, sl_off, _), (r_on, nl_on, sl_on, pc_on) = \
+        runs["off"], runs["on"]
+    same = (np.array_equal(r_off.theta, r_on.theta)
+            and all(np.array_equal(r_off.combined[c], r_on.combined[c])
+                    for c in FIELD_COMBINERS)
+            and r_off.score_norm == r_on.score_norm)
+    spans = set(r_on.telemetry.spans)
+    warm_tags = [e for e in r_on.telemetry.events if e["kind"] == "event"]
+    gate(same and (nl_off, sl_off) == (nl_on, sl_on) == (nl_c, sl_c)
+         and pc_on == 0 and {"fit", "fit/bucket_solve", "fit/combine"}
+         <= spans and tags and not warm_tags
+         and all(e["tags"]["backend"] == "cuda" for e in tags)
+         and r_off.telemetry is None,
+         f"field warm fit with telemetry on against off: theta, combined "
+         f"and score norm bitwise equal {same}; launches Newton {nl_on} / "
+         f"{nl_off}, score {sl_on} / {sl_off} (cold {nl_c} / {sl_c}); "
+         f"spans {sorted(spans)}; {len(tags)} kernel tags on the fresh "
+         f"session's cold fit, backends "
+         f"{sorted({e['tags']['backend'] for e in tags})}, {len(warm_tags)} "
+         f"on the warm fit")
+    print(f"  field warm fit median of 5: telemetry off "
+          f"{statistics.median(walls['off']):.4f} s (range "
+          f"{min(walls['off']):.4f}-{max(walls['off']):.4f}), on "
+          f"{statistics.median(walls['on']):.4f} s (range "
+          f"{min(walls['on']):.4f}-{max(walls['on']):.4f}); "
+          f"{len(r_on.telemetry.events)} events per fit", flush=True)
+
+    # ---- (c) joint and select at the structure bench's size -------------
+    g_sb = C.grid_graph(5, 6)
+    X_sb = planted_structure(torch, np, g_sb, "ising", 2000, gen, dev)
+    plan = A.Plan(graph=g_sb, family="ising", combiners=("diagonal",))
+    s_off = plan.session()
+    s_on = plan.replace(telemetry=TelemetrySpec()).session()
+    for verb, want_spans in (
+            ("joint", {"joint", "joint/bucket_solve", "joint/admm_iter",
+                       "joint/admm_iter/prox_bucket_solve"}),
+            ("select", {"select", "select/screen", "select/dense_fit",
+                        "select/dense_fit/bucket_solve", "select/path",
+                        "select/path/prox_bucket_solve", "select/vote"})):
+        # both runs keep their Newton inputs, so their walls compare
+        with capture():
+            a, wall_a, nl_a, sl_a, _ = counted(
+                lambda: getattr(s_off, verb)(X_sb))
+            b, wall_b, nl_b, sl_b, pc = counted(
+                lambda: getattr(s_on, verb)(X_sb))
+        hold_uncovered(f"{verb} on the 5 x 6 grid")
+        launches["newton"] += nl_a + nl_b
+        launches["score_c1"] += sl_a + sl_b
+        if verb == "joint":
+            same = (np.array_equal(a.trajectory, b.trajectory)
+                    and a.score_norm == b.score_norm)
+        else:
+            same = (a.support == b.support and np.array_equal(a.ebic, b.ebic)
+                    and all(np.array_equal(u, v)
+                            for u, v in zip(a.thetas, b.thetas)))
+        spans = {k: v["count"] for k, v in b.telemetry.spans.items()}
+        gate(same and want_spans <= set(spans) and (nl_a, sl_a) ==
+             (nl_b, sl_b) and pc == 0,
+             f"{verb} on the 5 x 6 grid (n = 2000) with telemetry on "
+             f"against off: outputs bitwise equal {same}; launches Newton "
+             f"{nl_b} / {nl_a}, score {sl_b} / {sl_a}; spans {spans}; "
+             f"wall {wall_b:.3f} s on, {wall_a:.3f} s off")
+
+    # ---- (d) the hostile star with a JSONL log -------------------------
+    star = C.star_graph(6)
+    model = C.random_model(star, 0.5, 0.4, gen, device=dev)
+    ts = model.theta.cpu().numpy()
+    pool = C.exact_sample(model, 900, gen)
+    hostile = FaultPlan(
+        crashes=(CrashSpec(node=2, at=3, restart_at=8),),
+        byzantine=(ByzantineSpec(node=5, kind="scaled_noise", scale=1.0),),
+        replay=ReplaySpec(prob=0.4, delay=2),
+        drift=(DriftSpec(at=7, scale=0.3),))
+
+    def hostile_sim(**over):
+        kw = dict(scheme="diagonal", theta_star=ts,
+                  network=NetworkConfig(drop_prob=0.4, delay=1, jitter=1),
+                  arrivals=ArrivalSpec(kind="poisson", rate=30.0),
+                  capacity=128, seed=11, faults=hostile, window=400)
+        kw.update(over)
+        return StreamSimulator(star, pool, **kw)
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    for label, over in (("one_step", {}),
+                        ("admm", dict(estimator="admm", newton_iters=8))):
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            path = str(Path(d) / "star.jsonl")
+            sim = hostile_sim(telemetry=TelemetrySpec(jsonl=path), **over)
+            with capture():
+                res, wall_on, nl_b, _, pc = counted(
+                    lambda: sim.run(HOSTILE_ROUNDS))
+            replayed = replay_network_counters(read_events(path))
+        with capture():
+            plain, wall_off, nl_a, _, _ = counted(
+                lambda: hostile_sim(**over).run(HOSTILE_ROUNDS))
+        launches["newton"] += nl_a + nl_b
+        hold_uncovered(f"hostile star {label}")
+        live = sim.net.counters_dict()
+        exact = (all(replayed[k] == v for k, v in live.items())
+                 and replayed["in_flight"] == sim.net.in_flight
+                 and replayed["scalars_in_flight"]
+                 == sim.net.scalars_in_flight)
+        tl = np.array_equal(res.timeline("err")[1], res.err)
+        same = (np.array_equal(res.theta, plain.theta)
+                and np.array_equal(res.err, plain.err)
+                and np.array_equal(res.scalars_sent, plain.scalars_sent))
+        gate(exact and tl and same and nl_a == nl_b >= 1 and pc == 0,
+             f"hostile star {label} with a JSONL log: replayed network "
+             f"ledger equal to the live counters {exact} ({live}); "
+             f"timeline('err') equal to the recorded column {tl}; run "
+             f"bitwise equal to the telemetry-off run {same}; Newton "
+             f"launches {nl_b} / {nl_a}; {len(res.telemetry.events)} events,"
+             f" wall {wall_on:.3f} s on, {wall_off:.3f} s off")
+
+    # ---- (e) profile_dir -------------------------------------------------
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        sess = A.Plan(graph=g_eu, family="ising",
+                      telemetry=TelemetrySpec(profile_dir=d)).session()
+        with capture():
+            res, wall, nl, sl, _ = counted(lambda: sess.fit(X_eu))
+        launches["newton"] += nl
+        launches["score_c1"] += sl
+        hold_uncovered("profile_dir paper fit")
+        paths = sorted(Path(d).glob("*.pt.trace.json"))
+        text = paths[0].read_text() if len(paths) == 1 else ""
+        names = sorted({n for n in ("newton_narrow_kernel",
+                                    "newton_wide_kernel",
+                                    "masked_logits_kernel",
+                                    "gram_tile_kernel") if n in text})
+        gate(len(paths) == 1 and any("newton" in n for n in names)
+             and any("newton" not in n for n in names) and nl >= 1
+             and sl == 1,
+             f"profile_dir: {len(paths)} trace file(s) "
+             f"({len(text) / 1e6:.2f} MB) naming {names}; fit wall "
+             f"{wall:.3f} s under the profiler")
+    torch.cuda.empty_cache()
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1707,6 +2098,7 @@ def main() -> int:
 
     for mod, name in ((omod, "bucket_newton_stats_ref"),
                       (omod, "cl_score_channels_ref"),
+                      (omod, "cl_score_ref"),
                       (nmod, "bucket_newton_stats_ref"),
                       (kmod, "cl_score_channels_ref")):
         setattr(mod, name, counting(getattr(mod, name)))
@@ -2195,6 +2587,8 @@ def main() -> int:
     phase11(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
             dev, check_newton, covered)
     phase12(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
+            dev, g_eu, paper[0][5], g_field, X_field, check_newton, covered)
+    phase13(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
             dev, g_eu, paper[0][5], g_field, X_field, check_newton, covered)
 
     kernels = [

@@ -9,10 +9,11 @@ exactly, so one plan dict drives both packages.
 Families and combiners are referenced by registry name. The streaming and
 joint options (capacity, window, discount, ADMM budgets) and a
 :class:`~repro_torch.stream.faults.FaultPlan` configure the ``stream``,
-``simulate`` and ``joint`` verbs, and a
-:class:`~repro_torch.structure.StructureSpec` the ``select`` verb. The
-telemetry and mesh options are carried in the schema but belong to later
-slices of the port: a plan that sets ``telemetry`` or ``mesh`` raises
+``simulate`` and ``joint`` verbs, a
+:class:`~repro_torch.structure.StructureSpec` the ``select`` verb, and a
+:class:`~repro_torch.telemetry.TelemetrySpec` turns on the instrumentation
+of every verb. The mesh option is carried in the schema but belongs to a
+later slice of the port: a plan that sets ``mesh`` raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from ..core.families import get_family
 from ..core.graphs import Graph
 from ..stream.faults import FaultPlan
 from ..structure.spec import StructureSpec
+from ..telemetry.spec import TelemetrySpec
 
 #: mesh policies of the schema; only None runs in this slice
 MESH_POLICIES = (None, "host", "data")
@@ -35,8 +37,7 @@ _PRECISIONS = ("float32", "float64", "bfloat16")
 _ADMM_INITS = ("zero", "uniform", "diagonal")
 
 #: options carried in the schema whose verbs come in later slices
-_LATER = {"telemetry": "the telemetry slice",
-          "mesh": "the multi-GPU slice"}
+_LATER = {"mesh": "the multi-GPU slice"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +62,12 @@ class Plan:
         ``to_dict`` form) for ``simulate``.
     structure : optional :class:`~repro_torch.structure.StructureSpec` (or
         its ``to_dict`` form) configuring ``select``.
-    mesh, telemetry : must be None in this slice.
+    telemetry : optional :class:`~repro_torch.telemetry.TelemetrySpec` (or
+        its ``to_dict`` form): spans, metrics and a JSONL event log for
+        every verb of this plan's session and for simulators built from
+        it. None keeps the allocation-free ``NULL_RECORDER`` on every hot
+        path.
+    mesh : must be None in this slice.
     """
 
     graph: Graph
@@ -80,7 +86,7 @@ class Plan:
     faults: Optional["FaultPlan"] = None
     stream_window: Optional[int] = None
     stream_discount: Optional[float] = None
-    telemetry: Optional[object] = None
+    telemetry: Optional[TelemetrySpec] = None
     structure: Optional[StructureSpec] = None
 
     def __post_init__(self):
@@ -138,6 +144,14 @@ class Plan:
                 raise TypeError(
                     f"plan.faults must be a FaultPlan (or its to_dict "
                     f"form), got {type(self.faults).__name__}")
+        if self.telemetry is not None:
+            if isinstance(self.telemetry, dict):
+                object.__setattr__(self, "telemetry",
+                                   TelemetrySpec.from_dict(self.telemetry))
+            elif not isinstance(self.telemetry, TelemetrySpec):
+                raise TypeError(
+                    f"plan.telemetry must be a TelemetrySpec (or its "
+                    f"to_dict form), got {type(self.telemetry).__name__}")
         if self.structure is not None:
             if isinstance(self.structure, dict):
                 object.__setattr__(self, "structure",
@@ -210,7 +224,8 @@ class Plan:
                        else self.faults.to_dict()),
             "stream_window": self.stream_window,
             "stream_discount": self.stream_discount,
-            "telemetry": None,
+            "telemetry": (None if self.telemetry is None
+                          else self.telemetry.to_dict()),
             "structure": (None if self.structure is None
                           else self.structure.to_dict()),
         }

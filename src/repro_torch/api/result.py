@@ -34,8 +34,10 @@ class EstimateResult:
                       (``joint`` only).
     primal_residual — (admm_iters,) rms primal residuals (``joint`` only).
     compile_s       — wall seconds of the kernel build this call paid.
-
-    The reference's telemetry field comes with the telemetry slice.
+    telemetry       — :class:`~repro_torch.telemetry.TelemetrySnapshot` of
+                      the verb's spans and metrics when the plan declares a
+                      :class:`~repro_torch.telemetry.TelemetrySpec`; None
+                      when telemetry is off.
     """
 
     mode: str
@@ -50,6 +52,7 @@ class EstimateResult:
     trajectory: Optional[np.ndarray] = None
     primal_residual: Optional[np.ndarray] = None
     compile_s: float = 0.0
+    telemetry: Optional[object] = None
 
     def mse(self, theta_star: np.ndarray, free=None) -> float:
         """||theta - theta*||^2 over ``free`` (default: all) coordinates."""

@@ -18,6 +18,11 @@ another: with no card and no device given, a session refuses to start.
                      lasso over candidate edges and support voting
                      (:mod:`repro_torch.structure`), returning a
                      :class:`~repro_torch.structure.StructureResult`.
+
+Each session holds one telemetry recorder, made from ``plan.telemetry``
+(the allocation-free ``NULL_RECORDER`` when None); ``fit``, ``joint`` and
+``select`` scope their events into ``result.telemetry``, and ``stream``
+and ``simulate`` share the recorder.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..core.estimators import LocalFit
 from ..core.graphs import Graph
 from ..device import resolve_device
 from ..kernels.build import LIBRARIES
+from ..telemetry.recorder import make_recorder
 from .plan import Plan
 from .result import EstimateResult
 
@@ -81,6 +87,9 @@ class EstimationSession:
         self.shared_owner_slots = sum(
             len(own) for own in self.owners.values() if len(own) > 1)
         self.fit_calls = 0
+        #: the plan's telemetry recorder: one per session, scoped per verb
+        #: call through mark()/snapshot()
+        self.recorder = make_recorder(plan.telemetry)
 
     @classmethod
     def for_plan(cls, plan: Plan, device=None) -> "EstimationSession":
@@ -147,7 +156,7 @@ class EstimationSession:
             family=self.family,
             want_influence=(self.want_influence if want_influence is None
                             else want_influence),
-            use_kernel=use_kernel, iters=iters)
+            use_kernel=use_kernel, iters=iters, recorder=self.recorder)
 
     # -------------------------------------------------------------- verbs
     def fit(self, X, sample_weight=None, warm_start=None,
@@ -157,28 +166,38 @@ class EstimationSession:
         ``compile_s`` and ``new_compiles`` count the kernel-library build
         this call paid, so a warm fit reports 0.
         """
+        rec = self.recorder
+        mark = rec.mark()
         t0 = time.perf_counter()
         b0, s0 = LIBRARIES.builds, LIBRARIES.build_s
-        Xt = self._as_samples(X)
-        n = int(Xt.shape[0])
-        fits = self.fit_local(Xt, sample_weight=sample_weight,
-                              warm_start=warm_start, use_kernel=use_kernel)
-        combined = {
-            c.name: c.combine(self.graph, fits,
-                              include_singleton=self.plan.include_singleton,
-                              theta_fixed=self.theta_fixed,
-                              family=self.family)
-            for c in self.combiners}
-        theta = combined[self.plan.combiners[0]]
-        score = self._score_norm(theta, Xt, n, use_kernel=use_kernel)
+        with rec.span("fit"):
+            Xt = self._as_samples(X)
+            n = int(Xt.shape[0])
+            fits = self.fit_local(Xt, sample_weight=sample_weight,
+                                  warm_start=warm_start,
+                                  use_kernel=use_kernel)
+            combined = {}
+            for c in self.combiners:
+                with rec.span("combine", scheme=c.name):
+                    combined[c.name] = c.combine(
+                        self.graph, fits,
+                        include_singleton=self.plan.include_singleton,
+                        theta_fixed=self.theta_fixed, family=self.family)
+            theta = combined[self.plan.combiners[0]]
+            score = self._score_norm(theta, Xt, n, use_kernel=use_kernel)
         self.fit_calls += 1
+        comm = self.one_step_comm(n)
+        if rec.enabled:
+            for scheme, cost in comm.items():
+                rec.gauge("comm.scalars_per_round", cost, scheme=scheme)
         return EstimateResult(
             mode="fit", theta=theta, combined=combined, fits=fits,
             n_samples=n, score_norm=score,
             wall_s=time.perf_counter() - t0,
             compile_s=LIBRARIES.build_s - s0,
             new_compiles=LIBRARIES.builds - b0,
-            comm_scalars=self.one_step_comm(n))
+            comm_scalars=comm,
+            telemetry=rec.snapshot(mark) if rec.enabled else None)
 
     def stream(self, capacity: Optional[int] = None):
         """Streaming verb: a :class:`~repro_torch.stream.online.
@@ -193,14 +212,17 @@ class EstimationSession:
             n_iter=self.plan.n_iter, family=self.family,
             want_influence=self.want_influence,
             window=self.plan.stream_window,
-            discount=self.plan.stream_discount, device=self.device)
+            discount=self.plan.stream_discount, device=self.device,
+            recorder=self.recorder)
 
     def simulate(self, pool, **overrides):
         """An event-driven :class:`~repro_torch.stream.simulator.
         StreamSimulator` configured from this plan on this session's device
-        (see ``StreamSimulator.from_plan``); ``overrides`` win."""
+        (see ``StreamSimulator.from_plan``), sharing this session's
+        telemetry recorder; ``overrides`` win."""
         from ..stream.simulator import StreamSimulator
         overrides.setdefault("device", self.device)
+        overrides.setdefault("telemetry", self.recorder)
         return StreamSimulator.from_plan(self.plan, pool, **overrides)
 
     def joint(self, X, sample_weight=None,
@@ -211,29 +233,37 @@ class EstimationSession:
         takes one Newton-kernel launch on the card; the score norm is one
         score-kernel launch. ``use_kernel=False`` asks for the plain
         versions."""
+        rec = self.recorder
+        mark = rec.mark()
         t0 = time.perf_counter()
         b0, s0 = LIBRARIES.builds, LIBRARIES.build_s
         plan = self.plan
-        Xt = self._as_samples(X)
-        n = int(Xt.shape[0])
-        sw = (None if sample_weight is None
-              else _tensor(sample_weight).to(self.device))
-        fits = None
-        if plan.admm_init != "zero":
-            fits = self.fit_local(Xt, sample_weight=sw, want_influence=False,
-                                  use_kernel=use_kernel)
-        res = admm_mple_family(
-            self.graph, Xt, n_iters=plan.admm_iters, init=plan.admm_init,
-            fits=fits, include_singleton=plan.include_singleton,
-            theta_fixed=self.theta_fixed,
-            newton_iters=plan.admm_newton_iters, family=self.family,
-            sample_weight=sw, rho0=plan.admm_rho, use_kernel=use_kernel)
-        theta = res.trajectory[-1]
-        score = self._score_norm(theta, Xt, n, use_kernel=use_kernel)
+        with rec.span("joint"):
+            Xt = self._as_samples(X)
+            n = int(Xt.shape[0])
+            sw = (None if sample_weight is None
+                  else _tensor(sample_weight).to(self.device))
+            fits = None
+            if plan.admm_init != "zero":
+                fits = self.fit_local(Xt, sample_weight=sw,
+                                      want_influence=False,
+                                      use_kernel=use_kernel)
+            res = admm_mple_family(
+                self.graph, Xt, n_iters=plan.admm_iters,
+                init=plan.admm_init, fits=fits,
+                include_singleton=plan.include_singleton,
+                theta_fixed=self.theta_fixed,
+                newton_iters=plan.admm_newton_iters, family=self.family,
+                sample_weight=sw, rho0=plan.admm_rho, use_kernel=use_kernel,
+                recorder=rec)
+            theta = res.trajectory[-1]
+            score = self._score_norm(theta, Xt, n, use_kernel=use_kernel)
         # each round every node sends its local vector and gets theta_bar
         _, param = local_layout(self.graph, self.family,
                                 plan.include_singleton)
         comm = plan.admm_iters * 2 * len(param)
+        if rec.enabled:
+            rec.gauge("comm.scalars_per_round", comm, scheme="admm")
         return EstimateResult(
             mode="joint", theta=theta, combined={"admm": theta}, fits=fits,
             n_samples=n, score_norm=score,
@@ -241,7 +271,8 @@ class EstimationSession:
             compile_s=LIBRARIES.build_s - s0,
             new_compiles=LIBRARIES.builds - b0,
             comm_scalars={"admm": comm},
-            trajectory=res.trajectory, primal_residual=res.primal_residual)
+            trajectory=res.trajectory, primal_residual=res.primal_residual,
+            telemetry=rec.snapshot(mark) if rec.enabled else None)
 
     def select(self, X, spec=None, use_kernel: bool = True):
         """Structure verb: estimate the graph by distributed
@@ -274,64 +305,80 @@ class EstimationSession:
         elif isinstance(spec, dict):
             spec = StructureSpec.from_dict(spec)
         rule = get_vote_rule(spec.vote)
+        rec = self.recorder
+        mark = rec.mark()
         t0 = time.perf_counter()
         b0, s0 = LIBRARIES.builds, LIBRARIES.build_s
         family = self.family
         C = family.block_dim
-        Xt = self._as_samples(X)
-        n, p = Xt.shape
-        if p != self.graph.p:
-            raise ValueError(f"X has {p} columns; plan graph has "
-                             f"p={self.graph.p} nodes")
-        # screening, the lambda grid and EBIC read X in float64 on the
-        # device, as the reference reads it in float64 on the host
-        Xd = Xt.to(torch.float64)
-        gc = candidate_graph(spec, p, X=Xd, family=family)
-        # the plan's fixed coordinates remapped onto the candidate graph:
-        # node blocks carry over, candidate-edge blocks are free
-        tf_c = np.zeros(family.n_params(gc))
-        tf_c[: p * C] = self.theta_fixed[: p * C]
-        tf_ct = torch.as_tensor(tf_c, device=self.device).to(Xt.dtype)
-
-        lambdas = spec.lambdas or auto_lambda_grid(gc, Xd, family, spec)
-
-        # the dense (unpenalized) fit on the candidate graph pins the
-        # path's lambda == 0 end to the fit verb, supplies the weighted
-        # vote's sandwich-variance masses (V is computed with or without
-        # the influence stacks) and debiases the EBIC likelihoods
-        fits_c = fit_all_local_batched(
-            gc, Xt, include_singleton=self.plan.include_singleton,
-            theta_fixed=tf_ct, n_iter=self.plan.n_iter, family=family,
-            want_influence=self.want_influence, use_kernel=use_kernel)
-        dense_thetas = [np.asarray(f.theta, dtype=np.float64)
-                        for f in fits_c]
-
-        bp = LIBRARIES.builds
-        path = lasso_path(gc, Xt, lambdas, spec, family,
-                          include_singleton=self.plan.include_singleton,
-                          theta_fixed=tf_ct, dense_thetas=dense_thetas,
-                          use_kernel=use_kernel)
-        path_compiles = LIBRARIES.builds - bp
-        ebic = ebic_scores(gc, Xd, path, family, spec,
-                           self.plan.include_singleton, tf_c,
-                           debias_thetas=dense_thetas)
-
         inc = self.plan.include_singleton
-        mass = (vote_masses(gc, fits_c, family, inc) if rule.needs_mass
-                else np.ones((p, gc.m)))
-        I = np.array([e[0] for e in gc.edges], dtype=np.int64)
-        J = np.array([e[1] for e in gc.edges], dtype=np.int64)
-        ar = np.arange(gc.m)
-        keeps, margins_l, sizes = [], [], []
-        for zs in path:
-            sup = edge_supports(gc, zs, family, inc)
-            keep, margin = reconcile(sup[I, ar], sup[J, ar], rule,
-                                     mass_a=mass[I, ar], mass_b=mass[J, ar])
-            keeps.append(keep)
-            margins_l.append(margin)
-            sizes.append(int(keep.sum()))
-        lsel = int(np.argmin(ebic))
-        support = tuple(e for e, k in zip(gc.edges, keeps[lsel]) if k)
+        with rec.span("select"):
+            Xt = self._as_samples(X)
+            n, p = Xt.shape
+            if p != self.graph.p:
+                raise ValueError(f"X has {p} columns; plan graph has "
+                                 f"p={self.graph.p} nodes")
+            # screening, the lambda grid and EBIC read X in float64 on the
+            # device, as the reference reads it in float64 on the host
+            Xd = Xt.to(torch.float64)
+            with rec.span("screen", policy=spec.policy):
+                gc = candidate_graph(spec, p, X=Xd, family=family)
+            # the plan's fixed coordinates remapped onto the candidate
+            # graph: node blocks carry over, candidate-edge blocks are free
+            tf_c = np.zeros(family.n_params(gc))
+            tf_c[: p * C] = self.theta_fixed[: p * C]
+            tf_ct = torch.as_tensor(tf_c, device=self.device).to(Xt.dtype)
+
+            lambdas = spec.lambdas or auto_lambda_grid(gc, Xd, family, spec)
+
+            # the dense (unpenalized) fit on the candidate graph pins the
+            # path's lambda == 0 end to the fit verb, supplies the weighted
+            # vote's sandwich-variance masses (V is computed with or
+            # without the influence stacks) and debiases the EBIC
+            # likelihoods
+            with rec.span("dense_fit"):
+                fits_c = fit_all_local_batched(
+                    gc, Xt, include_singleton=inc, theta_fixed=tf_ct,
+                    n_iter=self.plan.n_iter, family=family,
+                    want_influence=self.want_influence,
+                    use_kernel=use_kernel, recorder=rec)
+            dense_thetas = [np.asarray(f.theta, dtype=np.float64)
+                            for f in fits_c]
+
+            with rec.span("path", n_lambdas=len(lambdas)):
+                bp = LIBRARIES.builds
+                path = lasso_path(gc, Xt, lambdas, spec, family,
+                                  include_singleton=inc, theta_fixed=tf_ct,
+                                  dense_thetas=dense_thetas,
+                                  use_kernel=use_kernel, recorder=rec)
+                path_compiles = LIBRARIES.builds - bp
+                ebic = ebic_scores(gc, Xd, path, family, spec, inc, tf_c,
+                                   debias_thetas=dense_thetas)
+
+            with rec.span("vote", rule=rule.name):
+                mass = (vote_masses(gc, fits_c, family, inc)
+                        if rule.needs_mass else np.ones((p, gc.m)))
+                I = np.array([e[0] for e in gc.edges], dtype=np.int64)
+                J = np.array([e[1] for e in gc.edges], dtype=np.int64)
+                ar = np.arange(gc.m)
+                keeps, margins_l, sizes = [], [], []
+                for zs in path:
+                    sup = edge_supports(gc, zs, family, inc)
+                    keep, margin = reconcile(
+                        sup[I, ar], sup[J, ar], rule,
+                        mass_a=mass[I, ar], mass_b=mass[J, ar])
+                    keeps.append(keep)
+                    margins_l.append(margin)
+                    sizes.append(int(keep.sum()))
+                lsel = int(np.argmin(ebic))
+                support = tuple(e for e, k in zip(gc.edges, keeps[lsel])
+                                if k)
+            comm = structure_vote_scalars(gc.m, rule.name)
+            if rec.enabled:
+                rec.gauge("structure.candidate_edges", gc.m)
+                rec.gauge("structure.support_size", len(support))
+                rec.gauge("comm.scalars_per_round", comm,
+                          scheme=f"vote_{rule.name}")
         return StructureResult(
             support=support, graph=Graph(p, support),
             candidate_edges=gc.edges, vote_rule=rule.name,
@@ -340,11 +387,11 @@ class EstimationSession:
             support_sizes=tuple(sizes),
             thetas=debias_to_support(gc, path[lsel], dense_thetas, family,
                                      inc),
-            n_samples=int(n),
-            comm_scalars=structure_vote_scalars(gc.m, rule.name),
+            n_samples=int(n), comm_scalars=comm,
             wall_s=time.perf_counter() - t0,
             compile_s=LIBRARIES.build_s - s0, path_compiles=path_compiles,
-            new_compiles=LIBRARIES.builds - b0)
+            new_compiles=LIBRARIES.builds - b0,
+            telemetry=rec.snapshot(mark) if rec.enabled else None)
 
     def __repr__(self) -> str:
         return (f"EstimationSession(family={self.plan.family!r}, "

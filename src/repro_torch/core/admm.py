@@ -20,6 +20,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..telemetry.recorder import NULL_RECORDER
 from .asymptotics import param_owners
 from .batched import local_layout, prox_update_flat
 from .consensus import combine
@@ -151,7 +152,7 @@ def admm_mple_family(graph: Graph, X: torch.Tensor, n_iters: int = 30,
                      newton_iters: int = 15, family=None,
                      sample_weight: Optional[torch.Tensor] = None,
                      rho0: float = 1.0,
-                     use_kernel: bool = True) -> ADMMResult:
+                     use_kernel: bool = True, recorder=None) -> ADMMResult:
     """Joint MPLE via ADMM over any registered family.
 
     init: "zero" (theta_bar = theta_fixed, rho = rho0) or
@@ -159,8 +160,12 @@ def admm_mple_family(graph: Graph, X: torch.Tensor, n_iters: int = 30,
     rho = its weights, "uniform" scaled by ``rho0``), matching Fig. 3(c).
     ``X`` is an (n, p) tensor on the device the prox solves run on;
     ``sample_weight`` and ``use_kernel`` are as in
-    :func:`~repro_torch.core.batched.prox_update_batched`.
+    :func:`~repro_torch.core.batched.prox_update_batched`. A telemetry
+    ``recorder`` gets one ``admm_iter`` span per round, holding that
+    round's ``prox_bucket_solve`` spans and an ``admm.primal_residual``
+    observation.
     """
+    rec = NULL_RECORDER if recorder is None else recorder
     fam = ISING if family is None else family
     n_params = fam.n_params(graph)
     if theta_fixed is None:
@@ -193,22 +198,25 @@ def admm_mple_family(graph: Graph, X: torch.Tensor, n_iters: int = 30,
 
     traj = [np.array(theta_bar, copy=True)]
     resid = []
-    for _ in range(n_iters):
-        # 1) batched local proximal updates (one solve per degree bucket)
-        flat = prox_update_flat(
-            graph, X, theta_bar[param], lam, rho, flat, include_singleton,
-            tf, sample_weight, newton_iters, fam, use_kernel
-        ).astype(np.float64)
-        # 2) weighted linear consensus, summed over owners in node order
-        num = np.zeros(n_params)
-        np.add.at(num, param, rho * flat)
-        theta_bar = theta_bar.copy()
-        theta_bar[owned] = num[owned] / den[owned]
-        # 3) dual ascent
-        diff = flat - theta_bar[param]
-        lam = lam + rho * diff
-        resid.append(np.sqrt(float(diff @ diff) / max(len(param), 1)))
-        traj.append(np.array(theta_bar, copy=True))
+    for it in range(n_iters):
+        with rec.span("admm_iter", it=it):
+            # 1) batched local proximal updates (one solve per bucket)
+            flat = prox_update_flat(
+                graph, X, theta_bar[param], lam, rho, flat,
+                include_singleton, tf, sample_weight, newton_iters, fam,
+                use_kernel, recorder).astype(np.float64)
+            # 2) weighted linear consensus, summed over owners in node order
+            num = np.zeros(n_params)
+            np.add.at(num, param, rho * flat)
+            theta_bar = theta_bar.copy()
+            theta_bar[owned] = num[owned] / den[owned]
+            # 3) dual ascent
+            diff = flat - theta_bar[param]
+            lam = lam + rho * diff
+            resid.append(np.sqrt(float(diff @ diff) / max(len(param), 1)))
+            traj.append(np.array(theta_bar, copy=True))
+            if rec.enabled:
+                rec.observe("admm.primal_residual", resid[-1], it=it)
 
     return ADMMResult(trajectory=np.stack(traj),
                       primal_residual=np.asarray(resid))

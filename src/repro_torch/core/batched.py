@@ -21,18 +21,26 @@ Per-node parameters are flat in **coordinate-major block layout**
 
 Streaming support: ``sample_weight`` (a 0/1 prefix mask per node) and
 ``warm_start`` (previous per-node thetas) as in the reference engine.
+
+Observability: a telemetry ``recorder`` (the allocation-free
+``NULL_RECORDER`` when None) gets one ``bucket_solve`` (fit) or
+``prox_bucket_solve`` (ADMM primal) span per degree bucket, with the Newton
+iteration counts and dispatch seconds observed only when it is live.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..kernels.cl.epilogues import get_epilogue
+from ..kernels.build import LIBRARIES
 from ..kernels.cl.ops import bucket_newton_stats_op
+from ..telemetry.recorder import NULL_RECORDER
 from .estimators import LocalFit
 from .families import ISING
 from .graphs import Graph
@@ -425,7 +433,8 @@ def fit_all_local_batched(graph: Graph, X: torch.Tensor,
                           family=None,
                           want_influence: bool = True,
                           use_kernel: bool = True,
-                          iters: Optional[dict] = None) -> List[LocalFit]:
+                          iters: Optional[dict] = None,
+                          recorder=None) -> List[LocalFit]:
     """Fit all p local CL estimators via degree-bucketed batched solves.
 
     Returns ``List[LocalFit]`` ordered by node, with numpy fields trimmed
@@ -443,9 +452,14 @@ def fit_all_local_batched(graph: Graph, X: torch.Tensor,
         any device (the CUDA kernel otherwise runs on CUDA tensors).
       iters — optional dict that receives each bucket's Newton iteration
         count, keyed by ``deg_pad``.
+      recorder — a telemetry recorder: one ``bucket_solve`` span per
+        bucket, then ``engine.newton_iters`` and ``engine.bucket_dispatch_s``
+        observations (``compiled`` tags a dispatch that built the kernel
+        libraries).
     """
     if family is None:
         family = ISING
+    rec = NULL_RECORDER if recorder is None else recorder
     C = family.block_dim
     dev = X.device
     if theta_fixed is None:
@@ -467,13 +481,22 @@ def fit_all_local_batched(graph: Graph, X: torch.Tensor,
         dC = (b.deg_pad + lead) * C
         sw = _bucket_weights(sample_weight, b.nodes, n)
         W0 = _bucket_warm_start(warm_start, b, dC, lead, C, cdtype, dev)
-        W, H, J, V, S, I = _solve_bucket_impl(
-            X, nodes, nbrs, mask, offsets, W0, sw, include_singleton,
-            n_iter, sample_weight is not None, warm_start is not None,
-            family, want_influence=want_influence, use_kernel=use_kernel)
+        if rec.enabled:
+            b0, t0 = LIBRARIES.builds, time.perf_counter()
+        with rec.span("bucket_solve", deg_pad=b.deg_pad, k=k):
+            W, H, J, V, S, I = _solve_bucket_impl(
+                X, nodes, nbrs, mask, offsets, W0, sw, include_singleton,
+                n_iter, sample_weight is not None, warm_start is not None,
+                family, want_influence=want_influence, use_kernel=use_kernel)
+            # the host copies wait for the device: the span covers it all
+            W, H, J, V, S = (t.cpu().numpy() for t in (W, H, J, V, S))
         if iters is not None:
             iters[b.deg_pad] = int(I[0])
-        W, H, J, V, S = (t.cpu().numpy() for t in (W, H, J, V, S))
+        if rec.enabled:
+            dt = time.perf_counter() - t0
+            rec.observe("engine.newton_iters", int(I[0]), deg_pad=b.deg_pad)
+            rec.observe("engine.bucket_dispatch_s", dt, deg_pad=b.deg_pad,
+                        compiled=LIBRARIES.builds > b0)
         degs = b.mask.sum(axis=1).astype(np.int64)
         for row, i in enumerate(b.nodes):
             i = int(i)
@@ -589,14 +612,17 @@ def prox_update_flat(graph: Graph, X: torch.Tensor, bar: np.ndarray,
                      theta_fixed: Optional[torch.Tensor] = None,
                      sample_weight: Optional[torch.Tensor] = None,
                      n_iter: int = 15, family=None,
-                     use_kernel: bool = True) -> np.ndarray:
+                     use_kernel: bool = True, recorder=None) -> np.ndarray:
     """:func:`prox_update_batched` on the concatenated local vectors of
     :func:`local_layout`: consensus views ``bar``, duals ``lam``,
     penalties ``rho`` and Newton starts ``start``, each one flat array.
     Returns the updated local vectors, flat, in the solver type. The
-    per-node inputs pass through float32, as in the reference engine."""
+    per-node inputs pass through float32, as in the reference engine.
+    ``recorder`` gets one ``prox_bucket_solve`` span per bucket and an
+    ``engine.prox_dispatch_s`` observation."""
     if family is None:
         family = ISING
+    rec = NULL_RECORDER if recorder is None else recorder
     C = family.block_dim
     dev = X.device
     if theta_fixed is None:
@@ -623,13 +649,22 @@ def prox_update_flat(graph: Graph, X: torch.Tensor, bar: np.ndarray,
                 np.where(valid, flat[idx], 0.0).astype(np.float32),
                 device=dev)
         nodes = torch.as_tensor(b.nodes, dtype=torch.int64, device=dev)
-        W = _solve_bucket_prox_impl(
-            X, nodes, torch.as_tensor(b.nbrs, dtype=torch.int64, device=dev),
-            torch.as_tensor(b.mask, device=dev), node_tf[nodes], rows(start),
-            _bucket_weights(sample_weight, b.nodes, n), rows(lam), rows(rho),
-            rows(bar), include_singleton, n_iter,
-            sample_weight is not None, family, use_kernel=use_kernel)
-        out[idx[valid]] = W.cpu().numpy()[valid]
+        if rec.enabled:
+            b0, t0 = LIBRARIES.builds, time.perf_counter()
+        with rec.span("prox_bucket_solve", deg_pad=b.deg_pad,
+                      k=len(b.nodes)):
+            W = _solve_bucket_prox_impl(
+                X, nodes,
+                torch.as_tensor(b.nbrs, dtype=torch.int64, device=dev),
+                torch.as_tensor(b.mask, device=dev), node_tf[nodes],
+                rows(start), _bucket_weights(sample_weight, b.nodes, n),
+                rows(lam), rows(rho), rows(bar), include_singleton, n_iter,
+                sample_weight is not None, family, use_kernel=use_kernel)
+            W = W.cpu().numpy()
+        if rec.enabled:
+            rec.observe("engine.prox_dispatch_s", time.perf_counter() - t0,
+                        deg_pad=b.deg_pad, compiled=LIBRARIES.builds > b0)
+        out[idx[valid]] = W[valid]
     return out
 
 
@@ -641,7 +676,8 @@ def prox_update_batched(graph: Graph, X: torch.Tensor,
                         theta_fixed: Optional[torch.Tensor] = None,
                         sample_weight: Optional[torch.Tensor] = None,
                         n_iter: int = 15, family=None,
-                        use_kernel: bool = True) -> List[np.ndarray]:
+                        use_kernel: bool = True,
+                        recorder=None) -> List[np.ndarray]:
     """Batched ADMM primal update across all nodes (one solve per bucket).
 
     ``lambdas`` / ``rhos`` are length-p lists of ``beta_i``-length vectors;
@@ -649,8 +685,8 @@ def prox_update_batched(graph: Graph, X: torch.Tensor,
     streaming where every node holds its own consensus view, a length-p
     list of ``beta_i``-length vectors. ``thetas0`` are optional warm starts
     (a node without one starts at its consensus view). ``sample_weight``,
-    ``family`` and ``use_kernel`` are as in
-    :func:`fit_all_local_batched`; ``X`` is an (n, p) tensor on the device
+    ``family``, ``use_kernel`` and ``recorder`` are as in
+    :func:`prox_update_flat`; ``X`` is an (n, p) tensor on the device
     the solve runs on. Returns the updated per-node theta vectors (numpy,
     in the solver type).
     """
@@ -671,5 +707,5 @@ def prox_update_batched(graph: Graph, X: torch.Tensor,
     out = prox_update_flat(
         graph, X, bar, np.concatenate(lambdas), np.concatenate(rhos), start,
         include_singleton, theta_fixed, sample_weight, n_iter, family,
-        use_kernel)
+        use_kernel, recorder)
     return np.split(out, off[1:-1])

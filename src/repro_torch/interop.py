@@ -1,5 +1,6 @@
-"""Carry plans, estimates, fault plans, stream states, Ising models and
-model parameters across from the reference package.
+"""Carry plans (with their fault, structure and telemetry specs),
+estimates, fault plans, stream states, Ising models and model parameters
+across from the reference package.
 
 The port keeps the reference's layouts by design, so these are checked
 identities: they validate what they are given and hand back the port's own
@@ -24,7 +25,8 @@ from .stream.faults import FaultPlan
 
 def plan_from_reference(d: dict) -> Plan:
     """The port's :class:`Plan` from the reference's ``plan.to_dict()``,
-    its ``structure`` entry (a ``StructureSpec.to_dict()``) included."""
+    its ``structure`` entry (a ``StructureSpec.to_dict()``) and its
+    ``telemetry`` entry (a ``TelemetrySpec.to_dict()``) included."""
     return Plan.from_dict(d)
 
 

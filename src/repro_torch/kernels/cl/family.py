@@ -21,7 +21,8 @@ def family_kernel_inputs(family, graph, theta, X):
     theta_c (C, p, p) symmetric per-channel couplings, the (p, p) adjacency
     mask and bias (C, p) node blocks, all in X's type and on X's device.
     """
-    theta = theta.to(dtype=X.dtype, device=X.device)
+    X = torch.as_tensor(X)
+    theta = torch.as_tensor(theta).to(dtype=X.dtype, device=X.device)
     F = torch.movedim(family.edge_features(X), -1, 0).contiguous()
     theta_c = torch.movedim(family.coupling_tensor(graph, theta), -1,
                             0).contiguous()
@@ -35,6 +36,21 @@ def family_kernel_inputs(family, graph, theta, X):
         mask[e[:, 1], e[:, 0]] = 1.0
     bias = family.node_params(graph, theta).T.contiguous()
     return F, theta_c, mask, bias
+
+
+def family_score_stats(family, graph, theta, X, *, use_kernel: bool = True):
+    """Fused (eta, r, S) channelized score statistics for any family whose
+    ``kernel_kind`` has a registered epilogue, through the dispatch layer
+    (:func:`repro_torch.kernels.cl.ops.score_stats_channels_op`, which
+    records the resolved path in telemetry). Shapes as in
+    :func:`repro_torch.kernels.cl.kernel.cl_score_channels`; one score
+    kernel launch on CUDA tensors (float32 only), the plain version on the
+    CPU or with ``use_kernel=False``.
+    """
+    F, theta_c, mask, bias = family_kernel_inputs(family, graph, theta, X)
+    return score_stats_channels_op(F, theta_c, mask, bias,
+                                   kind=family.kernel_kind,
+                                   use_kernel=use_kernel)
 
 
 def fused_pseudo_score(family, graph, theta, x_pad, n_seen: int, *,
@@ -54,11 +70,8 @@ def fused_pseudo_score(family, graph, theta, x_pad, n_seen: int, *,
     x_pad = torch.as_tensor(x_pad).to(torch.float32)
     theta32 = torch.as_tensor(np.asarray(theta, dtype=np.float32),
                               device=x_pad.device)
-    F, theta_c, mask, bias = family_kernel_inputs(family, graph, theta32,
-                                                  x_pad)
-    _, r, S = score_stats_channels_op(F, theta_c, mask, bias,
-                                      kind=family.kernel_kind,
-                                      use_kernel=use_kernel)
+    _, r, S = family_score_stats(family, graph, theta32, x_pad,
+                                 use_kernel=use_kernel)
     n_seen = int(n_seen)
     g = np.zeros(family.n_params(graph))
     g[: p * C] = (r[:, :n_seen, :].sum(dim=1, dtype=torch.float64)

@@ -9,6 +9,11 @@ jitter — the staleness/asynchrony regime of dynamic-consensus estimation
 seeded generator consumed in deterministic iteration order, so a simulation
 is exactly reproducible. The generators are numpy ``RandomState``s, so the
 port delivers the reference's message sequences for the same seeds.
+
+With a live telemetry recorder every message transition is logged as a
+``net.send`` / ``net.drop`` / ``net.deliver`` counter valued at its scalar
+count, so a JSONL log replays the exact bandwidth ledger
+(:mod:`repro_torch.telemetry.replay`).
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..telemetry.recorder import NULL_RECORDER
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +61,13 @@ class Network:
 
     def __init__(self, links: Sequence[Tuple[int, int]],
                  config: NetworkConfig = NetworkConfig(),
-                 rng: Optional[np.random.RandomState] = None) -> None:
+                 rng: Optional[np.random.RandomState] = None,
+                 recorder=None) -> None:
         self.links = tuple(links)
         self._link_set = set(self.links)
         self.config = config
+        #: telemetry recorder (see the module docstring)
+        self.recorder = NULL_RECORDER if recorder is None else recorder
         if config.seed is not None:
             self._rng = np.random.RandomState(config.seed)
         elif rng is not None:
@@ -87,10 +97,16 @@ class Network:
         delay/jitter (replayed stale copies arrive late by construction)."""
         self.msgs_sent += 1
         self.scalars_sent += int(n_scalars)
+        rec = self.recorder
+        if rec.enabled:
+            rec.inc("net.send", int(n_scalars), src=src, dst=dst, round=rnd)
         if self.config.drop_prob > 0.0 and \
                 self._rng.rand() < self.config.drop_prob:
             self.msgs_dropped += 1
             self.scalars_dropped += int(n_scalars)
+            if rec.enabled:
+                rec.inc("net.drop", int(n_scalars), src=src, dst=dst,
+                        round=rnd)
             return False
         lat = self.config.delay + int(extra_delay)
         if self.config.jitter > 0:
@@ -107,6 +123,10 @@ class Network:
         due.sort(key=lambda m: (m.deliver_at, m.created, m.src, m.dst))
         self.msgs_delivered += len(due)
         self.scalars_delivered += sum(m.n_scalars for m in due)
+        if self.recorder.enabled:
+            for m in due:
+                self.recorder.inc("net.deliver", m.n_scalars, src=m.src,
+                                  dst=m.dst, round=rnd, created=m.created)
         return due
 
     @property

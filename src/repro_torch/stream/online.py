@@ -28,6 +28,7 @@ from ..core.families import ISING
 from ..core.graphs import Graph
 from ..kernels.cl.epilogues import get_epilogue
 from ..kernels.cl.family import fused_pseudo_score
+from ..telemetry.recorder import NULL_RECORDER
 from .buffer import SampleBuffer, discount_table
 
 
@@ -50,7 +51,8 @@ class StreamingEstimator:
                  capacity: int = 64, n_iter: int = 40,
                  family=None, want_influence: bool = True,
                  window: Optional[int] = None,
-                 discount: Optional[float] = None, device=None) -> None:
+                 discount: Optional[float] = None, device=None,
+                 recorder=None) -> None:
         if window is not None and int(window) < 1:
             raise ValueError(
                 f"sliding window must be >= 1 sample (None disables it), "
@@ -61,6 +63,9 @@ class StreamingEstimator:
                 f"None disables it), got {discount!r}")
         self.window = None if window is None else int(window)
         self.discount = None if discount is None else float(discount)
+        #: telemetry recorder; the shared allocation-free NULL_RECORDER
+        #: unless an owner (session or simulator) injects a live one
+        self.recorder = NULL_RECORDER if recorder is None else recorder
         self.graph = graph
         self.family = ISING if family is None else family
         #: False skips the (n, d) per-sample influence stacks on every
@@ -192,16 +197,26 @@ class StreamingEstimator:
         if self.fits is not None and np.array_equal(self.counts,
                                                     self._fit_counts):
             return self.fits
+        rec = self.recorder
         X = self.buffer.tensor
         masks = self.buffer.window_weights(self.counts, self.window,
                                            self.discount)
-        fits = fit_all_local_batched(
-            self.graph, X, include_singleton=self.include_singleton,
-            theta_fixed=torch.as_tensor(self.theta_fixed,
-                                        device=X.device).to(X.dtype),
-            n_iter=self.n_iter, sample_weight=masks, warm_start=self._warm,
-            family=self.family, want_influence=self.want_influence,
-            use_kernel=use_kernel)
+        with rec.span("refit"):
+            fits = fit_all_local_batched(
+                self.graph, X, include_singleton=self.include_singleton,
+                theta_fixed=torch.as_tensor(self.theta_fixed,
+                                            device=X.device).to(X.dtype),
+                n_iter=self.n_iter, sample_weight=masks,
+                warm_start=self._warm, family=self.family,
+                want_influence=self.want_influence, use_kernel=use_kernel,
+                recorder=rec)
+        if rec.enabled:
+            # buffer occupancy and window effective counts at this refit,
+            # all read on the host
+            rec.gauge("stream.buffer_rows", int(self.buffer.n))
+            rec.gauge("stream.buffer_capacity", int(self.buffer.capacity))
+            rec.gauge("stream.effective_count_mean",
+                      float(self.effective_counts.mean()))
         return self._finish_refit(fits)
 
     def _finish_refit(self, fits: List[LocalFit]) -> List[LocalFit]:

@@ -20,7 +20,10 @@ estimate_at(t)`` answers "what would the network report if queried at round
 t". The port carries crash, Byzantine, replay and drift faults; a drift
 change-point jumps the truth and re-draws the unseen pool from the drifted
 model with ``family.exact_sample``, keyed statelessly off the seed and the
-change-point round. Telemetry comes with the telemetry slice.
+change-point round. With ``telemetry=`` (a ``TelemetrySpec``, a session's
+recorder, or None) a run records ``stream`` / ``round`` / ``refit`` spans,
+the network's message counters, fault and combiner counters, and the
+timeline points that ``StreamResult.timeline`` reads first.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..core.batched import prox_update_batched
 from ..core.combiners import (TRUST_RADIUS, get_combiner,
                               streamable_combiners)
 from ..core.graphs import Graph
+from ..telemetry.recorder import make_recorder
 from .buffer import as_device_rows
 from .costs import admm_message_scalars, one_step_message_scalars
 from .faults import FaultPlan
@@ -93,8 +97,8 @@ class StreamResult:
     #: what the network reported when recording started (theta_fixed for a
     #: fresh simulator); answers queries earlier than the first snapshot
     initial: Optional[np.ndarray] = None
-    #: the reference's telemetry snapshot; always None in the port until
-    #: the telemetry slice
+    #: :class:`repro_torch.telemetry.TelemetrySnapshot` of the run's events
+    #: when the simulator carried a live recorder, else None
     telemetry: Optional[object] = None
 
     #: recorded columns addressable through :meth:`timeline`
@@ -102,9 +106,13 @@ class StreamResult:
                 "staleness", "score_norm")
 
     def timeline(self, metric: str) -> Tuple[np.ndarray, np.ndarray]:
-        """(rounds, values) any-time curve for one recorded column
-        (``err`` / ``scalars_sent`` / ``samples_seen`` / ``samples_total``
-        / ``staleness`` / ``score_norm``)."""
+        """(rounds, values) any-time curve for one recorded metric: the
+        telemetry snapshot's ``point`` events when a live recorder captured
+        them (equal to a JSONL replay), else the result's own recorded
+        column (``err`` / ``scalars_sent`` / ``samples_seen`` /
+        ``samples_total`` / ``staleness`` / ``score_norm``)."""
+        if self.telemetry is not None and metric in self.telemetry.points:
+            return self.telemetry.timeline(metric)
         if metric not in self._COLUMNS:
             raise KeyError(
                 f"unknown timeline metric {metric!r}; have "
@@ -180,11 +188,12 @@ class StreamSimulator:
         if faults is not None and not isinstance(faults, FaultPlan):
             raise TypeError(f"faults must be a FaultPlan, "
                             f"got {type(faults).__name__}")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "simulator telemetry is not ported yet: it comes with the "
-                "telemetry slice of the PyTorch port; pass telemetry=None")
         from ..core.families import ISING
+        #: telemetry recorder threaded through the estimator bank, the
+        #: network and the round loop (a TelemetrySpec, an existing
+        #: Recorder such as the owning session's, or None for the shared
+        #: null recorder)
+        self.recorder = make_recorder(telemetry)
         self.combiner = get_combiner(scheme)
         #: unit weights are implicit and never transmitted (uniform)
         self._sends_weight = self.combiner.scalars_per_shared_param >= 2
@@ -208,7 +217,7 @@ class StreamSimulator:
                                       family=self.family,
                                       want_influence=False,
                                       window=window, discount=discount,
-                                      device=device)
+                                      device=device, recorder=self.recorder)
         #: the environment pool, float32 on the simulator's device
         self.pool = self._own_pool(pool)
         self.estimator = estimator
@@ -237,7 +246,8 @@ class StreamSimulator:
         links = [(i, j) for (a, b) in graph.edges for (i, j) in ((a, b),
                                                                 (b, a))]
         self.net = Network(links, network or NetworkConfig(),
-                           rng=np.random.RandomState(s_net))
+                           rng=np.random.RandomState(s_net),
+                           recorder=self.recorder)
         # params shared between the endpoints of each directed link: exactly
         # the link's own edge-coupling block (beta_i ∩ beta_j, Sec. 3.1)
         owners = param_owners(graph, include_singleton, self.family)
@@ -363,28 +373,37 @@ class StreamSimulator:
     def step(self) -> None:
         rnd = self.round
         p = self.graph.p
-        if self.faults is not None:
-            spec = self.faults.drift_at(rnd)
-            if spec is not None:
-                self._apply_drift(spec)
-        # 1. arrivals: reveal new environment samples to each sensor (drawn
-        # for every node every round so the arrival stream does not depend
-        # on the crash schedule; a crashed sensor just samples none)
-        draw = self.arrivals.draw(self._arr_rng, p)
-        down = self._down_now(rnd)
-        draw = np.where(down, 0, draw)
-        target = np.minimum(self.est.counts + draw, len(self.pool))
-        need = int(target.max()) if p else 0
-        if need > self._fed:
-            self.est.extend_pool(self.pool[self._fed: need])
-            self._fed = need
-        self.est.advance(target)
+        rec = self.recorder
+        with rec.span("round", round=rnd):
+            if self.faults is not None:
+                spec = self.faults.drift_at(rnd)
+                if spec is not None:
+                    self._apply_drift(spec)
+                    if rec.enabled:
+                        rec.inc("fault.injections", 1, kind="drift",
+                                round=rnd, at=spec.at)
+            # 1. arrivals: reveal new environment samples to each sensor
+            # (drawn for every node every round so the arrival stream does
+            # not depend on the crash schedule; a crashed sensor just
+            # samples none)
+            draw = self.arrivals.draw(self._arr_rng, p)
+            down = self._down_now(rnd)
+            draw = np.where(down, 0, draw)
+            if rec.enabled and self.faults is not None \
+                    and self.faults.crashes:
+                rec.gauge("fault.nodes_down", int(down.sum()), round=rnd)
+            target = np.minimum(self.est.counts + draw, len(self.pool))
+            need = int(target.max()) if p else 0
+            if need > self._fed:
+                self.est.extend_pool(self.pool[self._fed: need])
+                self._fed = need
+            self.est.advance(target)
 
-        if self.estimator == "one_step":
-            self._step_one_step(rnd, down)
-        else:
-            self._step_admm(rnd, down)
-        self.round += 1
+            if self.estimator == "one_step":
+                self._step_one_step(rnd, down)
+            else:
+                self._step_admm(rnd, down)
+            self.round += 1
 
     def _corrupt_vals(self, spec, vals: Dict) -> Dict:
         """Byzantine outbound corruption of one message's estimates. The
@@ -438,6 +457,10 @@ class StreamSimulator:
                     if self.faults is not None else None)
             if spec is not None:
                 vals = self._corrupt_vals(spec, vals)
+                if self.recorder.enabled:
+                    self.recorder.inc("fault.injections", 1,
+                                      kind="byzantine", node=i,
+                                      attack=spec.kind, round=rnd)
             payload = {"vals": vals, "version": int(self.est.versions[i]),
                        "sent_round": rnd}
             n_scal = one_step_message_scalars(len(shared), self.scheme)
@@ -452,6 +475,10 @@ class StreamSimulator:
                         and self._fault_rng.rand() < replay.prob:
                     self.net.send(rnd, i, j, prev, n_scal,
                                   extra_delay=replay.delay)
+                    if self.recorder.enabled:
+                        self.recorder.inc("fault.injections", 1,
+                                          kind="replay", src=i, dst=j,
+                                          round=rnd)
                 self._last_payload[(i, j)] = payload
         # 4. deliveries update the receiver's view of its peers
         self._deliver_views(rnd)
@@ -489,6 +516,10 @@ class StreamSimulator:
                     if self.faults is not None else None)
             if spec is not None:
                 vals = self._corrupt_vals(spec, vals)
+                if self.recorder.enabled:
+                    self.recorder.inc("fault.injections", 1,
+                                      kind="byzantine", node=i,
+                                      attack=spec.kind, round=rnd)
             payload = {"vals": vals, "version": rnd, "sent_round": rnd}
             self.net.send(rnd, i, j, payload,
                           admm_message_scalars(len(shared)))
@@ -548,6 +579,8 @@ class StreamSimulator:
             return theta
         eff = self.est.effective_counts
         anchored = getattr(self.combiner, "anchored", False)
+        rec = self.recorder
+        guard_rej = robust_rej = 0
         for a, own in self._owners.items():
             home = min(node for node, _ in own)
             raw = []
@@ -575,6 +608,8 @@ class StreamSimulator:
                     if is_own:
                         own_index = len(cands)
                     cands.append((e, max(v, 1e-12)))
+                else:
+                    guard_rej += 1
             if not cands:
                 continue
             # robust (anchored) combiners also learn which candidate is the
@@ -582,8 +617,21 @@ class StreamSimulator:
             if anchored:
                 theta[a] = self.combiner.combine_candidates(
                     cands, own_index=own_index)
+                if rec.enabled:
+                    mask = self.combiner.filter_mask(
+                        cands, own_index=own_index)
+                    if mask is not None:
+                        robust_rej += len(cands) - int(
+                            np.count_nonzero(mask))
             else:
                 theta[a] = self.combiner.combine_candidates(cands)
+        if rec.enabled:
+            if guard_rej:
+                rec.inc("combine.guard_rejections", guard_rej,
+                        round=self.round)
+            if robust_rej:
+                rec.inc("combine.robust_rejections", robust_rej,
+                        round=self.round)
         return theta
 
     def mean_staleness(self) -> float:
@@ -697,25 +745,42 @@ class StreamSimulator:
         recorded estimate (one score-kernel launch on the card)."""
         # the estimate the network reports as recording starts
         initial = self.current_estimate()
+        tel = self.recorder
+        mark = tel.mark()
         recs: List[dict] = []
-        for r in range(rounds):
-            self.step()
-            if (r + 1) % record_every == 0 or r == rounds - 1:
-                theta = self.current_estimate()
-                rec = {
-                    "round": self.round,
-                    "theta": theta,
-                    "seen": float(self.est.counts.mean()),
-                    "total": int(self.est.counts.sum()),
-                    "scalars": int(self.net.scalars_sent),
-                    "stale": self.mean_staleness(),
-                }
-                if self.theta_star is not None:
-                    d = (theta - self.theta_star)[self.free]
-                    rec["err"] = float(d @ d)
-                if record_score:
-                    rec["score"] = self.est.score_norm(theta)
-                recs.append(rec)
+        with tel.span("stream", rounds=rounds):
+            for r in range(rounds):
+                self.step()
+                if (r + 1) % record_every == 0 or r == rounds - 1:
+                    theta = self.current_estimate()
+                    rec = {
+                        "round": self.round,
+                        "theta": theta,
+                        "seen": float(self.est.counts.mean()),
+                        "total": int(self.est.counts.sum()),
+                        "scalars": int(self.net.scalars_sent),
+                        "stale": self.mean_staleness(),
+                    }
+                    if self.theta_star is not None:
+                        d = (theta - self.theta_star)[self.free]
+                        rec["err"] = float(d @ d)
+                    if record_score:
+                        rec["score"] = self.est.score_norm(theta)
+                    recs.append(rec)
+                    if tel.enabled:
+                        # timeline samples: the recorded columns' values at
+                        # their rounds, so a snapshot's or a JSONL replay's
+                        # timeline() is exact
+                        tel.point("scalars_sent", self.round,
+                                  rec["scalars"])
+                        tel.point("samples_seen", self.round, rec["seen"])
+                        tel.point("staleness", self.round, rec["stale"])
+                        if "err" in rec:
+                            tel.point("err", self.round, rec["err"])
+                        if "score" in rec:
+                            tel.point("score_norm", self.round,
+                                      rec["score"])
+        tel.flush()
         return StreamResult(
             rounds=np.array([r["round"] for r in recs]),
             theta=np.stack([r["theta"] for r in recs]),
@@ -727,4 +792,5 @@ class StreamSimulator:
             score_norm=(np.array([r["score"] for r in recs])
                         if record_score else None),
             staleness=np.array([r["stale"] for r in recs]),
-            initial=initial)
+            initial=initial,
+            telemetry=tel.snapshot(mark) if tel.enabled else None)

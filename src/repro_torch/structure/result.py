@@ -49,7 +49,9 @@ class StructureResult:
     path_compiles  — kernel libraries built during the lambda path (0 once
                      the libraries are built).
     new_compiles   — kernel libraries built during the whole call.
-    telemetry      — None: telemetry comes with the telemetry slice.
+    telemetry      — :class:`~repro_torch.telemetry.TelemetrySnapshot` of
+                     the call's spans and metrics when the plan declares a
+                     ``TelemetrySpec``; None when telemetry is off.
     """
 
     support: Tuple[Edge, ...]
@@ -68,7 +70,7 @@ class StructureResult:
     compile_s: float
     path_compiles: int
     new_compiles: int
-    telemetry: Optional[dict] = None
+    telemetry: Optional[object] = None
 
     def edge_metrics(self, true_edges) -> Dict[str, float]:
         """Precision / recall / F1 of ``support`` against a known edge set."""

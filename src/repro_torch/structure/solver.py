@@ -128,7 +128,8 @@ def lasso_path(graph: Graph, X: torch.Tensor, lambdas: Sequence[float],
                include_singleton: bool = True,
                theta_fixed: Optional[torch.Tensor] = None,
                dense_thetas: Optional[Sequence[np.ndarray]] = None,
-               use_kernel: bool = True) -> List[List[np.ndarray]]:
+               use_kernel: bool = True,
+               recorder=None) -> List[List[np.ndarray]]:
     """Walk the descending lambda grid; return per-lambda sparse iterates.
 
     Returns ``zs[l][i]``: node i's ``family.beta``-ordered iterate at
@@ -139,7 +140,8 @@ def lasso_path(graph: Graph, X: torch.Tensor, lambdas: Sequence[float],
     ``dense_thetas`` (the caller's unpenalized fit on the same candidate
     graph) instead of iterating. ``X`` is an (n, p) tensor on the device
     the prox solves run on; ``use_kernel=False`` asks for the plain Newton
-    statistics.
+    statistics; a telemetry ``recorder`` gets every round's
+    ``prox_bucket_solve`` spans.
     """
     C = family.block_dim
     lead = 1 if include_singleton else 0
@@ -167,8 +169,8 @@ def lasso_path(graph: Graph, X: torch.Tensor, lambdas: Sequence[float],
         for _ in range(spec.admm_rounds):
             w = prox_update_flat(
                 graph, X, z - u, zero_lam, rho_vec, w, include_singleton,
-                theta_fixed, None, spec.newton_iters, family, use_kernel
-            ).astype(np.float64)
+                theta_fixed, None, spec.newton_iters, family, use_kernel,
+                recorder).astype(np.float64)
             z_old = z
             z = group_soft_threshold_flat(w + u, thr, C, off, lead)
             u = u + w - z

@@ -78,7 +78,7 @@ def test_comm_accounting_matches_reference():
             rcosts.one_step_comm_by_scheme(19, names, n)
 
 
-def test_family_without_epilogue_raises_in_local_fits(monkeypatch):
+def test_family_without_epilogue_fits_by_closed_form_hooks(monkeypatch):
     """A family with no registered epilogue no longer raises: its Newton
     statistics come from the closed-form hooks, as in the reference's
     engine, and never reach the kernel dispatch; the fits equal those of

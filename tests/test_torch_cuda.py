@@ -788,3 +788,70 @@ def test_centralized_fits_on_the_card_match_the_cpu(dev):
     loop = TCo.fit_all_local(g, Xc, method="loop")
     for a, b in zip(fits, loop):
         np.testing.assert_allclose(a.theta, b.theta, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,p", [(32, 10), (130, 128), (200, 150), (5, 260)])
+@pytest.mark.parametrize("kind", ["ising", "gaussian"])
+def test_seed_score_entry_points_launch_one_kernel(dev, kind, n, p):
+    """cl_score, its padded and Ising variants and score_stats_op: one
+    score launch per call, within the float32 precision tolerance of the
+    plain version at the reference's conformance shapes."""
+    import repro_torch.kernels.cl as TK
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + p)
+    x = (torch.randn((n, p), generator=gen, device=dev) if kind == "gaussian"
+         else torch.where(torch.rand((n, p), generator=gen, device=dev) < .5,
+                          1.0, -1.0))
+    theta = 0.3 * torch.randn((p, p), generator=gen, device=dev)
+    theta = ((theta + theta.T) / 2).contiguous()
+    mask = torch.triu((torch.rand((p, p), generator=gen, device=dev) < .3)
+                      .float(), 1)
+    mask = (mask + mask.T).contiguous()
+    bias = 0.1 * torch.randn(p, generator=gen, device=dev)
+    want = TK.cl_score_ref(x, theta, mask, bias, kind=kind)
+    x_pad = torch.zeros((2 * n, p), device=dev)
+    x_pad[:n] = x
+    calls = [lambda: TK.cl_score(x, theta, mask, bias, kind=kind),
+             lambda: TK.score_stats_op(x, theta, mask, bias, kind=kind),
+             lambda: TK.cl_score_padded(x_pad, theta, mask, bias, n,
+                                        kind=kind)]
+    if kind == "ising":
+        calls += [lambda: TK.ising_cl_score(x, theta, mask, bias),
+                  lambda: TK.ising_cl_score_padded(x_pad, theta, mask, bias,
+                                                   n)]
+    tol = TK.precision_tolerance("float32")
+    for call in calls:
+        n0 = kmod.cl_score_channels.launches
+        eta, r, S = call()
+        assert kmod.cl_score_channels.launches == n0 + 1
+        for g, w in zip((eta[:n], r[:n], S), want):
+            assert g.is_cuda and float((g - w).abs().max()) <= tol
+    with pytest.raises(TypeError, match="float32"):
+        TK.cl_score(x.double(), theta.double(), mask.double(),
+                    bias.double(), kind=kind)
+
+
+def test_telemetry_fit_tags_cuda_and_equals_the_plain_off_run(dev):
+    """A telemetry fit on the card: outputs bitwise those with telemetry
+    off, the same launches, kernel tags with backend ``cuda`` on the cold
+    fit of a fresh session and none on the warm fit."""
+    g = grid_graph(8, 8)
+    X = np.where(np.random.RandomState(0).rand(2048, g.p) < .5, 1.0, -1.0)
+    off = TA.Plan(graph=g).session()
+    on = TA.Plan(graph=g, telemetry=TA.TelemetrySpec()).session()
+    counts = []
+    for sess in (off, on, on):
+        n0 = (nmod.bucket_newton_stats.launches,
+              kmod.cl_score_channels.launches)
+        res = sess.fit(X)
+        counts.append((nmod.bucket_newton_stats.launches - n0[0],
+                       kmod.cl_score_channels.launches - n0[1], res))
+    (nl_a, sl_a, a), (nl_b, sl_b, b), (_, _, warm) = counts
+    assert (nl_a, sl_a) == (nl_b, sl_b) and sl_a == 1
+    np.testing.assert_array_equal(a.theta, b.theta)
+    assert a.score_norm == b.score_norm
+    tags = [e for e in b.telemetry.events if e["kind"] == "event"]
+    assert tags and all(e["tags"]["backend"] == "cuda" for e in tags)
+    assert not [e for e in warm.telemetry.events if e["kind"] == "event"]
+    assert {"fit", "fit/bucket_solve", "fit/combine"} <= \
+        set(b.telemetry.spans)

@@ -161,12 +161,22 @@ def test_session_cache_is_keyed_by_plan_and_device():
     ("mesh", "host"), ("telemetry", {}), ("structure", {})])
 def test_later_slice_plan_options_refuse(field, value):
     """Options of later slices refuse; ``structure``, ported with
-    ``select``, is accepted (a dict becomes a StructureSpec) and
-    round-trips through the reference's dict schema."""
+    ``select``, and ``telemetry``, ported with the telemetry slice, are
+    accepted (a dict becomes a StructureSpec / TelemetrySpec) and
+    round-trip through the reference's dict schema; a telemetry plan's fit
+    runs and carries its snapshot."""
     if field == "structure":
         plan = TA.Plan(graph=grid_graph(2, 2), **{field: value})
         assert isinstance(plan.structure, TA.StructureSpec)
         assert TA.Plan.from_dict(plan.to_dict()) == plan
+        return
+    if field == "telemetry":
+        plan = TA.Plan(graph=grid_graph(2, 2), **{field: value})
+        assert plan.telemetry == TA.TelemetrySpec()
+        assert TA.Plan.from_dict(plan.to_dict()) == plan
+        X = np.where(np.random.RandomState(1).rand(64, 4) < 0.5, 1.0, -1.0)
+        res = plan.session(device="cpu").fit(X)
+        assert "fit/bucket_solve" in res.telemetry.spans
         return
     with pytest.raises(NotImplementedError, match=field):
         TA.Plan(graph=grid_graph(2, 2), **{field: value})
@@ -191,9 +201,10 @@ _DRIFT = TS.FaultPlan(drift=(TS.DriftSpec(at=2),))
     "telemetry in simulate", "telemetry in StreamSimulator",
     "mesh in StreamSimulator", "mesh in simulate"])
 def test_later_slice_stream_options_refuse(case):
-    """Telemetry and mesh wait for their slices: the streaming verbs refuse
-    them and name what they wait for. Drift, ported with the drift slice,
-    is accepted, and a round across the change-point runs."""
+    """Mesh waits for its slice: the streaming verbs refuse it. Drift and
+    telemetry, ported with their slices, are accepted: a round across the
+    change-point runs, and a telemetry run carries its snapshot (a session
+    shares its recorder with the simulators it builds)."""
     graph = grid_graph(2, 2)
     pool = np.where(np.random.RandomState(5).rand(64, 4) < 0.5, 1.0, -1.0)
     theta = np.zeros(8)
@@ -213,14 +224,20 @@ def test_later_slice_stream_options_refuse(case):
         assert np.all(np.isfinite(res.theta)) and res.err.shape == (3,)
         assert not np.array_equal(sim.theta_star, theta)
         return
+    telemetry = {
+        "telemetry in simulate": lambda: sess.simulate(
+            pool, theta_star=theta, telemetry={}),
+        "telemetry in StreamSimulator": lambda: TS.StreamSimulator(
+            graph, pool, theta_star=theta, telemetry=TA.TelemetrySpec(),
+            device="cpu"),
+    }
+    if case in telemetry:
+        res = telemetry[case]().run(3)
+        assert np.all(np.isfinite(res.theta)) and res.err.shape == (3,)
+        assert res.telemetry.spans["stream/round"]["count"] == 3
+        np.testing.assert_array_equal(res.timeline("err")[1], res.err)
+        return
     raises = {
-        "telemetry in simulate": (
-            NotImplementedError, "telemetry slice",
-            lambda: sess.simulate(pool, telemetry={})),
-        "telemetry in StreamSimulator": (
-            NotImplementedError, "telemetry slice",
-            lambda: TS.StreamSimulator(graph, pool, telemetry=object(),
-                                       device="cpu")),
         "mesh in StreamSimulator": (
             TypeError, "mesh",
             lambda: TS.StreamSimulator(graph, pool, mesh="host",
