@@ -116,7 +116,26 @@ Phases:
      5 x 6 grid with telemetry on against off; the hostile star of phase
      12 (one-step and ADMM) with a JSONL log whose replay equals the live
      network counters; a profile_dir trace naming the Newton and score
-     kernels.
+     kernels;
+ 14. the multi-tenant session server (repro_torch.serve): the serve bench
+     at its full size (benchmarks/serve_bench.py, REPRO_BENCH_FULL=1: 32
+     tenants over two plans on scale_free_graph(24, seed=0), 12 rounds of
+     256 rows from synthetic_workload(seed=0) on the card, max_coalesce 8,
+     a VirtualClock, round 0 the warm-up), coalesced and serial: no
+     rejection, no library build when warm, coalesced throughput above
+     serial, every coalesced ticket within GATE_COALESCE of the serial
+     server's, fewer Newton launches coalesced, the server's counters
+     reconciled with the tickets; then eight tenants of one plan on the
+     64 x 64 grid (Ising, diagonal, capacity 2048): fit requests of 2048
+     of phase 5's rows each, one coalesced group (a union bucket of k =
+     32768, d = 5) against eight serial dispatches, cold and warm, the
+     Newton kernel held against its plain version at the union bucket and
+     timed there, and three stream rounds through the weighted kernel;
+     coalesced gated where every owner's serial fit is settled (cond(H) <
+     COND_LIMIT, a plain float64 Newton step below STEP_LIMIT), the
+     Newton kernel held at every new bucket shape of the served runs,
+     every served run one Newton launch per statistics call and no plain
+     version on a CUDA tensor.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -229,6 +248,25 @@ GATE_TRAJECTORY = 1e-4
 #: original tail against the drifted law and the re-drawn tail against the
 #: undrifted one, must read above the gate
 GATE_TAIL_Z2 = 1.15
+
+#: phase 14's serve bench (benchmarks/serve_bench.py at REPRO_BENCH_FULL=1):
+#: tenants over two plans on scale_free_graph(24, seed=0), rounds (round 0
+#: the warm-up), rows per request, the largest coalesced group
+SERVE_TENANTS, SERVE_ROUNDS, SERVE_ROWS, SERVE_COALESCE = 32, 12, 256, 8
+#: phase 14's field serving: tenants of one plan on the 64 x 64 grid, rows
+#: per request (disjoint blocks of phase 5's rows), stream rounds
+FIELD_TENANTS, FIELD_ROWS, FIELD_ROUNDS = 8, 2048, 3
+#: a coalesced ticket against the serial server's on the card: theta and
+#: every combined estimate, normwise; the union bucket sums each node's
+#: samples in another split than the tenant's own bucket
+GATE_COALESCE = 1e-4
+#: near-singular and unconverged local fits follow the last bits
+#: (ROADMAP.md queue 3): the gate holds at the parameters whose owners'
+#: serial fits all have a local H of condition number below COND_LIMIT (as
+#: the parity tests hold theirs) and a plain float64 Newton step from the
+#: served estimate below STEP_LIMIT (the fit converged within the plan's
+#: Newton budget); the difference over every parameter is printed beside it
+COND_LIMIT, STEP_LIMIT = 1e6, 1e-4
 
 
 def rel_err(a, b) -> float:
@@ -652,6 +690,21 @@ def phase10(torch, np, A, g_field, X_field, smi, gate, launches,
 
     bmod.bucket_newton_stats_op = counted_op
     ssolver.prox_update_flat = counted_prox
+
+    def hold_captured(label):
+        """Phase 3's check at every bucket shape captured since the last
+        call (W drawn: at a converged iterate g cancels to near 0)."""
+        for (kind, shape, weighted), (Zb, b_, xi, sw) in sorted(
+                seen.items()):
+            k, Cb, d, n = shape
+            W = 0.05 * torch.randn((k, d * Cb), generator=w_gen, device=dev)
+            check_newton(f"{label} bucket k={k} C={Cb} d={d} n={n} "
+                         f"weighted={weighted}", kind, Zb, b_, xi, W, sw)
+        print(f"  {label}: the Newton kernel held against its plain version "
+              f"at {len(seen)} bucket shapes no earlier check covered",
+              flush=True)
+        seen.clear()
+        torch.cuda.empty_cache()
 
     def counted(fn):
         """fn() with every count set to 0 just before and read just after:
@@ -1765,6 +1818,324 @@ def phase13(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase14(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, dev,
+            g_field, X_field, check_newton, time_newton, bucket_inputs,
+            covered):
+    """The multi-tenant session server on the card: the serve bench at its
+    full size, coalesced and serial (its invariants: no rejection, no build
+    when warm, coalesced throughput above serial; every coalesced ticket
+    within GATE_COALESCE of the serial server's; fewer Newton launches
+    coalesced), then eight field tenants' fit requests and stream rounds,
+    coalesced into one union bucket of k = 32768 against eight serial
+    dispatches, with the Newton kernel held against its plain version at
+    the union bucket and timed there, and held at every other bucket shape
+    the served runs send that no earlier check covered. Coalesced tickets
+    are gated where every owner's serial fit is settled (COND_LIMIT,
+    STEP_LIMIT); the difference over all parameters is printed beside
+    it. Every served run counts its Newton statistics calls and kernel
+    launches, which must be equal (one launch per bucket per Newton
+    iteration for the whole group), and no plain version may see a CUDA
+    tensor."""
+    import repro_torch.core.batched as bmod
+    from repro_torch.core import scale_free_graph
+    from repro_torch.serve import (SessionServer, VirtualClock, run_load,
+                                   synthetic_workload, union_graph)
+
+    t_phase = time.perf_counter()
+    print(f"phase 14: the session server ({smi})", flush=True)
+    op = bmod.bucket_newton_stats_op
+    tally = {"calls": 0, "weighted": 0}
+    seen = {}      # (kind, design shape, weighted) -> that shape's inputs
+    capturing = {"on": False}
+    w_gen = torch.Generator(device=dev)
+    w_gen.manual_seed(20120632)
+
+    def counting(kind, Zb, base, xi, W, sw=None, **kw):
+        tally["calls"] += 1
+        tally["weighted"] += sw is not None
+        key = (kind, tuple(Zb.shape), sw is not None)
+        if capturing["on"] and Zb.is_cuda and key not in covered \
+                and key not in seen:
+            seen[key] = tuple(None if t is None else t.detach().clone()
+                              for t in (Zb, base, xi, sw))
+        return op(kind, Zb, base, xi, W, sw, **kw)
+
+    def hold_captured(label):
+        """Phase 3's check at every bucket shape captured since the last
+        call (W drawn: at a converged iterate g cancels to near 0)."""
+        for (kind, shape, weighted), (Zb, b_, xi, sw) in sorted(
+                seen.items()):
+            k, Cb, d, n = shape
+            W = 0.05 * torch.randn((k, d * Cb), generator=w_gen, device=dev)
+            check_newton(f"{label} bucket k={k} C={Cb} d={d} n={n} "
+                         f"weighted={weighted}", kind, Zb, b_, xi, W, sw)
+        print(f"  {label}: the Newton kernel held against its plain version "
+              f"at {len(seen)} bucket shapes no earlier check covered",
+              flush=True)
+        seen.clear()
+        torch.cuda.empty_cache()
+
+    def counted(fn):
+        """fn() with every count set to 0 just before and read just after:
+        (result, wall s, Newton launches, statistics calls, weighted calls,
+        plain calls on CUDA tensors); the launches join the kernels line."""
+        nmod.bucket_newton_stats.launches = 0
+        tally["calls"] = tally["weighted"] = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl = nmod.bucket_newton_stats.launches
+        launches["newton"] += nl
+        return (out, wall, nl, tally["calls"], tally["weighted"],
+                plain_cuda_calls["n"])
+
+    owner_rows = {}
+
+    def owner_nodes(owners):
+        """(n_params, 2) owner node ids of each parameter (-1 pads one)."""
+        key = id(owners)
+        if key not in owner_rows:
+            rows = np.full((len(owners), 2), -1, dtype=np.int64)
+            for a, own in owners.items():
+                rows[a, :len(own)] = [i for i, _ in own]
+            owner_rows[key] = (owners, rows)
+        return owner_rows[key][1]
+
+    def settled(plan, fits, X, sw=None):
+        """Per node of a serial result, and True for the pad of one-owner
+        rows: a finite local H with cond < COND_LIMIT, and a plain float64
+        Newton step from the served estimate below STEP_LIMIT (one guarded
+        iteration warm-started there on the rows the fit saw)."""
+        good = np.zeros(len(fits) + 1, dtype=bool)
+        good[-1] = True
+        shapes = {}
+        for i, f in enumerate(fits):
+            if np.all(np.isfinite(f.H)):
+                shapes.setdefault(f.H.shape, []).append(i)
+        for idx in shapes.values():
+            H = np.stack([fits[i].H for i in idx])
+            good[idx] = np.linalg.cond(H) < COND_LIMIT
+        one = plan.replace(n_iter=1, precision="float64").session()
+        stepped = one.fit_local(X, sample_weight=sw,
+                                warm_start=[f.theta for f in fits],
+                                want_influence=False, use_kernel=False)
+        for i, (f1, f) in enumerate(zip(stepped, fits)):
+            good[i] &= bool(np.abs(f1.theta - f.theta).max() <= STEP_LIMIT)
+        return good
+
+    def close(a, b, owners, good):
+        """(gated, over every parameter, parameters left out): the largest
+        normwise relative difference of two served results over theta and
+        every combined estimate, at the parameters whose owners are all
+        ``good`` (from settled() of the serial result ``b``), then
+        everywhere."""
+        keep = good[owner_nodes(owners)].all(axis=1)
+
+        def rel(x, y, m):
+            x, y = np.asarray(x)[m], np.asarray(y)[m]
+            return float(np.linalg.norm(x - y)
+                         / max(float(np.linalg.norm(y)), 1e-30))
+        pairs = [(a.theta, b.theta)]
+        pairs += [(a.combined[c], b.combined[c]) for c in b.combined]
+        every = np.ones_like(keep)
+        return (max(rel(x, y, keep) for x, y in pairs),
+                max(rel(x, y, every) for x, y in pairs), int((~keep).sum()))
+
+    def worst_of(pairs, srv, rows):
+        """close() over (coalesced, serial) ticket pairs, ``rows`` giving
+        each serial ticket's (X, sample weights): the largest gated and
+        overall differences and the parameters left out in all."""
+        out = []
+        for a, b in pairs:
+            sess = srv.tenant(b.tenant_id).session
+            good = settled(sess.plan, b.result.fits, *rows(b))
+            out.append(close(a.result, b.result, sess.owners, good))
+        return (max(o[0] for o in out), max(o[1] for o in out),
+                sum(o[2] for o in out))
+
+    bmod.bucket_newton_stats_op = counting
+    try:
+        # ---- (a) the serve bench at its full size ------------------------
+        base = A.Plan(graph=scale_free_graph(24, seed=0), family="ising",
+                      combiners=("diagonal",), n_iter=8)
+        alt = base.replace(combiners=("uniform",))
+        plans = {f"t{j:02d}": (base if j % 4 else alt)
+                 for j in range(SERVE_TENANTS)}
+        t0 = time.perf_counter()
+        schedule = synthetic_workload(plans, rounds=SERVE_ROUNDS,
+                                      n_rows=SERVE_ROWS, seed=0)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        X0 = schedule[0][0][1]
+        print(f"  serve bench: {SERVE_TENANTS} tenants x {SERVE_ROUNDS} "
+              f"rounds of {SERVE_ROWS} rows drawn by synthetic_workload("
+              f"seed=0) on the card ({X0.device}, {X0.dtype}) in "
+              f"{draw_s:.2f} s", flush=True)
+        runs = {}
+        for coalesce in (True, False):
+            srv = SessionServer(coalesce=coalesce,
+                                max_coalesce=SERVE_COALESCE,
+                                clock=VirtualClock())
+            for tid, plan in plans.items():
+                srv.register(tid, plan)
+            warm = run_load(srv, schedule[:1])
+            capturing["on"] = True
+            meas, wall, nl, calls, _, pc = counted(
+                lambda: run_load(srv, schedule[1:]))
+            capturing["on"] = False
+            runs[coalesce] = (srv, warm, meas, nl, calls, pc)
+            mode = "coalesced" if coalesce else "serial"
+            s = meas.summary()
+            snap = srv.metrics()
+            tickets = warm.tickets + meas.tickets
+            n_groups = len(snap.histograms["serve.coalesce_size"])
+            reconciled = (
+                snap.counter("serve.admitted") == len(tickets)
+                == snap.counter("serve.served")
+                and snap.counter("serve.rejected") == 0
+                and snap.counter("serve.dispatches") == n_groups
+                == snap.spans["serve_dispatch"]["count"]
+                and sum(snap.histograms["serve.coalesce_size"])
+                == len(tickets)
+                and len(snap.histograms["serve.latency_s"]) == len(tickets))
+            gate(meas.n_rejected == 0 and warm.n_rejected == 0
+                 and meas.new_compiles == 0 and nl == calls and pc == 0
+                 and reconciled,
+                 f"serve bench {mode}: {s['n_served']} requests (warm-up "
+                 f"round {warm.n_served}, {warm.wall_s:.3f} s), p50 "
+                 f"{s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms, "
+                 f"{s['throughput_rps']:.1f} requests/s over "
+                 f"{s['wall_s']:.3f} s, mean group "
+                 f"{s['mean_coalesce_size']:.2f}, builds {meas.new_compiles}"
+                 f", rejected "
+                 f"{meas.n_rejected}; Newton launches {nl} "
+                 f"({nl / max(s['n_served'], 1):.1f} a request) for {calls} "
+                 f"statistics calls, plain calls on CUDA tensors {pc}; "
+                 f"counters reconciled with {len(tickets)} tickets over "
+                 f"{n_groups} dispatches {reconciled}")
+        (_, _, meas_c, nl_c, _, _), (_, _, meas_s, nl_s, _, _) = \
+            runs[True], runs[False]
+        X_of = {}
+        for t, (_, X, _) in zip(meas_s.tickets,
+                                (r for rs in schedule[1:] for r in rs)):
+            X_of[t.seq] = X
+        worst, worst_all, left = worst_of(
+            zip(meas_c.tickets, meas_s.tickets), runs[False][0],
+            lambda t: (X_of[t.seq], None))
+        same = all((a.tenant_id, a.seq, a.result.comm_scalars)
+                   == (b.tenant_id, b.seq, b.result.comm_scalars)
+                   for a, b in zip(meas_c.tickets, meas_s.tickets))
+        gate(meas_c.throughput_rps > meas_s.throughput_rps
+             and nl_c < nl_s and worst <= GATE_COALESCE and same,
+             f"serve bench: coalesced {meas_c.throughput_rps:.1f} against "
+             f"serial {meas_s.throughput_rps:.1f} requests/s (x"
+             f"{meas_c.throughput_rps / meas_s.throughput_rps:.2f}); Newton "
+             f"launches {nl_c} against {nl_s}; every coalesced ticket "
+             f"within {worst:.2e} of the serial server's (gate "
+             f"{GATE_COALESCE:g}) where every owner's fit is settled "
+             f"(cond(H) < {COND_LIMIT:g}, Newton step < {STEP_LIMIT:g}; "
+             f"{left} ticket parameters left out; {worst_all:.2e} over "
+             f"all)")
+        hold_captured("serve bench")
+        del runs, schedule, meas_c, meas_s
+
+        # ---- (b) field serving: eight tenants on the 64 x 64 grid --------
+        fplan = A.Plan(graph=g_field, family="ising",
+                       combiners=("diagonal",), capacity=FIELD_ROWS)
+        blocks = [X_field[FIELD_ROWS * i: FIELD_ROWS * (i + 1)]
+                  for i in range(X_field.shape[0] // FIELD_ROWS)]
+        tids = [f"f{j}" for j in range(FIELD_TENANTS)]
+        servers = {}
+        for coalesce in (True, False):
+            srv = SessionServer(coalesce=coalesce, max_coalesce=FIELD_TENANTS)
+            for tid in tids:
+                srv.register(tid, fplan)
+            servers[coalesce] = srv
+
+        def serve_round(srv, rows, kind):
+            tickets = [srv.submit(tid, X, kind=kind)
+                       for tid, X in zip(tids, rows)]
+            out = counted(srv.drain)
+            return (tickets,) + out[1:]
+
+        fit_rows = blocks[:FIELD_TENANTS]
+        # the Newton kernel at the union bucket, held and timed
+        ug = union_graph(g_field, FIELD_TENANTS)
+        X_union = torch.cat(fit_rows, 1)
+        _, ub = bucket_inputs(ug, "ising", X_union, False)
+        for deg_pad, args in ub:
+            k, Cb, d, n = args[0].shape
+            tag = f"serve field union bucket d={d} k={k} n={n}"
+            check_newton(tag, "ising", *args)
+            row = time_newton(tag, "ising", args, 10)
+            print(f"  union bucket: kernel {row['ms']:.4f} ms against its "
+                  f"byte bound {row['bound_ms']:.4f} ms; one launch per "
+                  f"Newton iteration of a coalesced dispatch", flush=True)
+        del ub, X_union
+        torch.cuda.empty_cache()
+
+        capturing["on"] = True
+        for label in ("cold", "warm"):
+            res = {c: serve_round(servers[c], fit_rows, "fit")
+                   for c in (True, False)}
+            (tc, wc, nlc, cc, _, pcc), (ts, ws, nls, cs, _, pcs) = \
+                res[True], res[False]
+            X_of = dict(zip((t.seq for t in ts), fit_rows))
+            worst, worst_all, left = worst_of(
+                zip(tc, ts), servers[False], lambda t: (X_of[t.seq], None))
+            gate(all(t.result.coalesce_size == FIELD_TENANTS for t in tc)
+                 and all(t.result.coalesce_size == 1 for t in ts)
+                 and nlc == cc and nls == cs and pcc == pcs == 0
+                 and worst <= GATE_COALESCE,
+                 f"field fit {label}: {FIELD_TENANTS} tenants x "
+                 f"{FIELD_ROWS} rows, coalesced {wc:.3f} s "
+                 f"({wc / len(tc):.4f} s a request; {nlc} Newton launches) "
+                 f"against serial "
+                 f"{ws:.3f} s ({ws / len(ts):.4f} s a request; {nls} "
+                 f"launches); coalesced within {worst:.2e} of serial where "
+                 f"every owner's fit is settled ({left} of "
+                 f"{len(tc) * tc[0].result.theta.size} parameters left out;"
+                 f" {worst_all:.2e} over all)")
+
+        def pool(t):
+            """A serial stream ticket's tenant pool and fit weights."""
+            est = servers[False].tenant(t.tenant_id).stream
+            return est.buffer.tensor, est.buffer.window_weights(
+                est.counts, est.window, est.discount)
+
+        # stream rounds: rotated blocks, the cold round then warm rounds
+        for rnd in range(FIELD_ROUNDS):
+            rows = [blocks[(j + 3 * rnd) % len(blocks)]
+                    for j in range(FIELD_TENANTS)]
+            res = {c: serve_round(servers[c], rows, "stream")
+                   for c in (True, False)}
+            (tc, wc, nlc, cc, wtc, pcc), (ts, ws, nls, cs, wts, pcs) = \
+                res[True], res[False]
+            worst, worst_all, left = worst_of(zip(tc, ts), servers[False],
+                                              pool)
+            n_pool = (rnd + 1) * FIELD_ROWS
+            gate(all(t.result.coalesce_size == FIELD_TENANTS
+                     and t.result.n_samples == n_pool for t in tc)
+                 and nlc == cc == wtc > 0 and nls == cs == wts > 0
+                 and pcc == pcs == 0 and worst <= GATE_COALESCE,
+                 f"field stream round {rnd} ({'cold' if rnd == 0 else 'warm'}"
+                 f", pool {n_pool} rows): coalesced {wc:.3f} s "
+                 f"({nlc} weighted Newton launches) against serial "
+                 f"{ws:.3f} s ({nls}); coalesced within {worst:.2e} of "
+                 f"serial where every owner's fit is settled ({left} "
+                 f"parameters left out; {worst_all:.2e} over all)")
+        capturing["on"] = False
+        hold_captured("field serving")
+        del servers
+    finally:
+        bmod.bucket_newton_stats_op = op
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2590,6 +2961,9 @@ def main() -> int:
             dev, g_eu, paper[0][5], g_field, X_field, check_newton, covered)
     phase13(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, kmod,
             dev, g_eu, paper[0][5], g_field, X_field, check_newton, covered)
+    phase14(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, dev,
+            g_field, X_field, check_newton, time_newton, bucket_inputs,
+            covered)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

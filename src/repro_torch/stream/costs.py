@@ -60,6 +60,24 @@ def one_step_comm_by_scheme(shared_owner_slots: int, combiners, n: int) -> dict:
     return out
 
 
+def shared_owner_slot_count(g: Graph, include_singleton: bool = True,
+                            family=None) -> int:
+    """(shared parameter, owner) pairs of a graph — the unit the one-step
+    accounting bills per scheme."""
+    owners = param_owners(g, include_singleton, family)
+    return sum(len(own) for own in owners.values() if len(own) > 1)
+
+
+def plan_request_scalars(g: Graph, combiners, n: int,
+                         include_singleton: bool = True,
+                         family=None) -> int:
+    """Total scalars one fit/stream round of a plan transmits, summed over
+    its requested distributable combiners — what the serving tier's
+    admission control charges a tenant per request."""
+    slots = shared_owner_slot_count(g, include_singleton, family)
+    return sum(one_step_comm_by_scheme(slots, combiners, n).values())
+
+
 def structure_vote_scalars(n_candidate_edges: int, rule: str) -> int:
     """Scalars one support-voting round transmits for a candidate edge set.
 

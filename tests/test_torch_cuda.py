@@ -855,3 +855,106 @@ def test_telemetry_fit_tags_cuda_and_equals_the_plain_off_run(dev):
     assert not [e for e in warm.telemetry.events if e["kind"] == "event"]
     assert {"fit", "fit/bucket_solve", "fit/combine"} <= \
         set(b.telemetry.spans)
+
+
+def _serve_on_card(plan, rows, coalesce, kind, rounds=1):
+    """Every tenant's request per round through one server on the card;
+    the tickets, round by round."""
+    import repro_torch.serve as TSV
+    srv = TSV.SessionServer(coalesce=coalesce, max_coalesce=8)
+    assert srv.device.type == "cuda"
+    for tid in rows:
+        srv.register(tid, plan)
+    out = []
+    for rnd in range(rounds):
+        ts = [srv.submit(tid, X[rnd], kind=kind) for tid, X in rows.items()]
+        srv.drain()
+        assert all(t.done for t in ts)
+        out.append(ts)
+    return out
+
+
+@pytest.mark.parametrize("kind", ["fit", "stream"])
+def test_coalesced_server_on_the_card_matches_serial(dev, kind):
+    """Four tenants coalesced against the same server with coalesce=False,
+    at float32: the union bucket sums each node's samples in another split
+    than the tenant's own bucket, so the gate is float32-level (theta and
+    every combined estimate within 1e-4 normwise)."""
+    g = grid_graph(6, 6)
+    plan = TA.Plan(graph=g, combiners=("diagonal", "uniform"),
+                   capacity=512)
+    rows = {f"t{j}": [_ising_rows(g.p, 512, 10 * j + r) for r in range(2)]
+            for j in range(4)}
+    rounds = 2 if kind == "stream" else 1
+    co = _serve_on_card(plan, rows, True, kind, rounds)
+    se = _serve_on_card(plan, rows, False, kind, rounds)
+    for tc_round, ts_round in zip(co, se):
+        for a, b in zip(tc_round, ts_round):
+            assert a.result.coalesce_size == 4
+            assert b.result.coalesce_size == 1
+            assert a.result.n_samples == b.result.n_samples
+            for name in plan.combiners:
+                x, y = (torch.as_tensor(t.result.combined[name])
+                        for t in (a, b))
+                assert _rel(x, y) <= 1e-4, (name, _rel(x, y))
+
+
+def test_newton_kernel_at_a_union_bucket_matches_plain(dev):
+    """The kernel at a coalesced group's bucket (8 copies of a 16 x 16
+    grid, whose degrees pad to one bucket: k = 2048, d = 5) against its
+    plain version, and a second call bitwise equal."""
+    from repro_torch.core.batched import _bucket_design, degree_buckets
+    from repro_torch.serve import union_graph
+    ug = union_graph(grid_graph(16, 16), 8)
+    X = torch.as_tensor(_ising_rows(ug.p, 2048, 5), device=dev).float()
+    b = max(degree_buckets(ug), key=lambda b: len(b.nodes))
+    nodes = torch.as_tensor(b.nodes, dtype=torch.int64, device=dev)
+    nbrs = torch.as_tensor(b.nbrs, dtype=torch.int64, device=dev)
+    mask = torch.as_tensor(b.mask, device=dev)
+    Zb, xi, base, _ = _bucket_design(TA.Plan(graph=ug).family_instance, X,
+                                     nodes, nbrs, mask, None, True)
+    assert tuple(Zb.shape) == (2048, 1, 5, 2048)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    W = 0.05 * torch.randn((Zb.shape[0], 5), generator=gen, device=dev)
+    got = nmod.bucket_newton_stats("ising", Zb, base, xi, W)
+    again = nmod.bucket_newton_stats("ising", Zb, base, xi, W)
+    want = nmod.bucket_newton_stats_ref("ising", Zb, base, xi, W)
+    assert all(_rel(g, w) <= 1e-4 for g, w in zip(got, want))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("kind", ["fit", "stream"])
+def test_coalesced_dispatch_launches_one_newton_kernel_per_iteration(
+        dev, kind, monkeypatch):
+    """A coalesced group's dispatch calls the engine's Newton statistics
+    once per bucket per iteration for the whole group, each call one kernel
+    launch (weighted for stream groups), and no plain version sees a CUDA
+    tensor."""
+    import repro_torch.core.batched as bmod
+    from repro_torch.kernels.cl import ops as omod
+    g = grid_graph(6, 6)
+    plan = TA.Plan(graph=g, capacity=512)
+    rows = {f"t{j}": [_ising_rows(g.p, 512, 40 + j)] for j in range(4)}
+    calls, plain = [], []
+    op = bmod.bucket_newton_stats_op
+
+    def counting(kind_, Zb, base, xi, W, sw=None, **kw):
+        calls.append((tuple(Zb.shape), sw is not None))
+        return op(kind_, Zb, base, xi, W, sw, **kw)
+
+    def no_plain(*args, **kw):
+        plain.append(any(getattr(a, "is_cuda", False) for a in args))
+        raise AssertionError("a plain version ran on the kernel path")
+
+    monkeypatch.setattr(bmod, "bucket_newton_stats_op", counting)
+    monkeypatch.setattr(omod, "bucket_newton_stats_ref", no_plain)
+    n0 = nmod.bucket_newton_stats.launches
+    (tickets,) = _serve_on_card(plan, rows, True, kind)
+    launches = nmod.bucket_newton_stats.launches - n0
+    assert tickets[0].result.coalesce_size == 4 and not plain
+    assert launches == len(calls) > 0
+    # every call is a bucket of the 4-copy union, weighted for streams
+    shapes = {s for s, _ in calls}
+    assert sum(s[0] for s in shapes) == 4 * g.p
+    assert all(w == (kind == "stream") for _, w in calls)
