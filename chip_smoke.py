@@ -136,6 +136,18 @@ Phases:
      Newton kernel held at every new bucket shape of the served runs,
      every served run one Newton launch per statistics call and no plain
      version on a CUDA tensor.
+ 15. training (repro_torch.train, optim, data): the flash-attention
+     kernel under autograd (SwaFunction: the kernel forward, the plain
+     version's recompute backward) against plain autograd at the training
+     shape, gradients bitwise equal; the synchronous trainer on
+     Llama-3.2-3B at full width and depth (6 steps, b = 2, s = 2048, remat
+     on, SyntheticLM): nll falling, 2 x 28 kernel launches a step, step
+     wall, tokens/s, peak memory and a profiled step's share in the
+     recompute; the pod-consensus trainer (2 pods, h_steps 2, 2 rounds,
+     full width, 8 layers) for uniform, diagonal, max and admm; the
+     reduced config on the card against the CPU; a consensus run saved
+     after round 1, restored bitwise and resumed, against the
+     uninterrupted run.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -267,6 +279,35 @@ GATE_COALESCE = 1e-4
 #: served estimate below STEP_LIMIT (the fit converged within the plan's
 #: Newton budget); the difference over every parameter is printed beside it
 COND_LIMIT, STEP_LIMIT = 1e6, 1e-4
+
+#: phase 15's attention Function checks: the training shape (b, s, h, kh,
+#: d: Llama-3.2-3B's heads at the sync trainer's batch and sequence) in
+#: bf16, causal and with TRAIN_WINDOW, and a float32 shape
+TRAIN_SWA, TRAIN_WINDOW = (2, 2048, 24, 8, 128), 1024
+TRAIN_SWA_F32 = (2, 512, 8, 4, 64)
+#: phase 15's synchronous trainer (full width and depth) and consensus
+#: trainer (full width, depth cut: two pods' stacked parameters, moments,
+#: duals and theta_bar are about 30 bytes a parameter, so 28 layers would
+#: need about 108 GB); AdamW peak lr, warmup 2 steps, cosine decay
+TRAIN_SYNC = {"batch": 2, "seq": 2048, "steps": 6}
+TRAIN_CONSENSUS = {"layers": 8, "pods": 2, "h_steps": 2, "rounds": 2,
+                   "batch": 4, "seq": 2048}
+TRAIN_LR = 5e-5
+#: the reduced config (float32) on the card against the port's CPU path:
+#: sequence length; nll relative (float32 sums in another order). A step's
+#: or round's parameters: Adam's first steps are about lr * sign(g), so a
+#: coordinate whose gradient is at float32 noise level moves by an
+#: unpredictable amount up to 2 lr (a sign flip), and the max vote may
+#: pick the other pod where the pods' Fisher weights nearly tie. So at
+#: most GATE_TRAIN_FLIPS of the coordinates may lie more than lr *
+#: TRAIN_APART apart, and the others lie within GATE_TRAIN_STEP of the
+#: update's size (per leaf, normwise; the CPU parity tests read up to
+#: 3.2e-4 port against reference). AdamW from the same state and
+#: gradients on the card and the CPU: per leaf, normwise, within
+#: GATE_TRAIN_ADAM
+TRAIN_REDUCED_SEQ, TRAIN_APART = 128, 1e-2
+GATE_TRAIN_LOSS, GATE_TRAIN_STEP, GATE_TRAIN_FLIPS = 1e-5, 1e-3, 1e-4
+GATE_TRAIN_ADAM = 1e-6
 
 
 def rel_err(a, b) -> float:
@@ -2136,6 +2177,434 @@ def phase14(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, dev,
     print(f"phase 14: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def tree_items(tree, path=""):
+    """('/'-joined path, tensor) pairs of nested dicts and NamedTuples."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, f"{path}/{k}")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k in tree._fields:
+            yield from tree_items(getattr(tree, k), f"{path}/{k}")
+    else:
+        yield path, tree
+
+
+def train_diff(torch, a, b, start=None):
+    """Largest per-leaf normwise difference of two trees of tensors (dicts,
+    NamedTuples), relative to ``start``'s distance from ``b`` (the size of
+    an update) when given, else to ``b``'s norm."""
+    worst = 0.0
+    lb = dict(tree_items(b))
+    ls = dict(tree_items(start)) if start is not None else None
+    for key, x in tree_items(a):
+        y = lb[key].detach().double().cpu()
+        x = x.detach().double().cpu()
+        ref = (y - ls[key].detach().double().cpu()) if ls is not None else y
+        worst = max(worst, float((x - y).norm()
+                                 / max(float(ref.norm()), 1e-30)))
+    return worst
+
+
+def train_split(torch, a, b, start, apart_by):
+    """(fraction of coordinates more than ``apart_by`` apart, the largest
+    per-leaf normwise difference over the other coordinates relative to
+    that leaf's update from ``start``) of two trees of one structure."""
+    lb, ls = dict(tree_items(b)), dict(tree_items(start))
+    apart, total, worst = 0, 0, 0.0
+    for key, x in tree_items(a):
+        x = x.detach().double().cpu()
+        y = lb[key].detach().double().cpu()
+        upd = y - ls[key].detach().double().cpu()
+        far = (x - y).abs() > apart_by
+        apart += int(far.sum())
+        total += x.numel()
+        near = ~far
+        worst = max(worst, float((x - y)[near].norm()
+                                 / max(float(upd[near].norm()), 1e-30)))
+    return apart / max(total, 1), worst
+
+
+def max_abs_diff(torch, a, b) -> float:
+    """Largest elementwise difference over two trees of one structure."""
+    lb = dict(tree_items(b))
+    return max(float((x.double() - lb[k].double()).abs().max())
+               if x.numel() else 0.0 for k, x in tree_items(a))
+
+
+def tree_equal(torch, a, b) -> bool:
+    lb, la = dict(tree_items(b)), dict(tree_items(a))
+    return la.keys() == lb.keys() and all(
+        x.dtype == lb[k].dtype and torch.equal(x, lb[k].to(x.device))
+        for k, x in la.items())
+
+
+def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
+            bf16_flops, bw):
+    """Training on the card: the swa autograd Function against plain
+    autograd (bitwise gradients at the training shape, bf16 causal and
+    windowed, and float32), the synchronous trainer on Llama-3.2-3B at
+    full width and depth (TRAIN_SYNC: step wall, tokens/s, peak memory,
+    swa launches per step, a profiled step's share in the backward
+    recompute), the pod-consensus trainer at full width, depth cut to
+    TRAIN_CONSENSUS's layers, for every scheme (theta_bar finite after
+    every round, one-step pods equal to theta_bar bitwise, ADMM duals
+    non-zero and pods apart, nll falling), the reduced config (float32)
+    on the card against the port's CPU path (one sync step and one round
+    of each scheme; GATE_TRAIN_LOSS, GATE_STATS on gradients,
+    GATE_TRAIN_FLIPS and GATE_TRAIN_STEP on a step's or round's
+    parameters against the size of its update, GATE_TRAIN_ADAM on AdamW
+    from the same gradients), and a resumed consensus run (save after round 1,
+    restore bitwise, round 2) against the uninterrupted run, within the
+    spread of two uninterrupted runs."""
+    import dataclasses
+
+    import torch.nn.functional as Fn
+
+    import repro_torch.configs as TC
+    from repro_torch import checkpoint as CK
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLM,
+                                           pod_sharded_batches)
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.kernels.swa import ops as sops
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import consensus as CT
+    from repro_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: training ({smi})", flush=True)
+
+    # ---- the autograd Function against plain autograd -------------------
+    b, s_len, h, kh, d = TRAIN_SWA
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20120615)
+    recompute_ms = None
+    for dtype, shape, window in (
+            (torch.bfloat16, TRAIN_SWA, 0),
+            (torch.bfloat16, TRAIN_SWA, TRAIN_WINDOW),
+            (torch.float32, TRAIN_SWA_F32, 0)):
+        b_, s_, h_, kh_, d_ = shape
+        q, k, v = (torch.randn((b_, s_, n, d_), generator=gen, device=dev)
+                   .to(dtype).requires_grad_(True) for n in (h_, kh_, kh_))
+        g = torch.randn((b_, s_, h_, d_), generator=gen, device=dev).to(dtype)
+        n0 = smod.swa_attention.launches
+        out = sops.swa_op(q, k, v, window=window)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        fwd_launches = smod.swa_attention.launches - n0
+        want = torch.autograd.grad(
+            smod.swa_attention_ref(q, k, v, window=window), (q, k, v), g)
+        with torch.no_grad():
+            ref32 = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                           window=window)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        name = str(dtype).split(".")[-1]
+        e = rel_err(out.detach(), ref32)
+        tag = (f"b={b_} s={s_} h/kh={h_}/{kh_} d={d_} {name} "
+               f"window={window}")
+        gate(same and e <= GATE_SWA[name] and fwd_launches == 1,
+             f"swa Function {tag}: dq, dk, dv bitwise equal to plain "
+             f"autograd {same}; forward rel {e:.2e} against the plain "
+             f"version in float32; kernel launches {fwd_launches}")
+        if dtype == torch.bfloat16 and window == 0:
+            # the backward's cost: the plain forward and its autograd
+            def recompute():
+                torch.autograd.grad(smod.swa_attention_ref(
+                    q, k, v, window=window), (q, k, v), g)
+
+            def kernel_fwd():
+                with torch.no_grad():
+                    smod.swa_attention(q, k, v, window=window)
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            gt = g.transpose(1, 2)
+
+            def library():      # SDPA forward and backward: a yardstick
+                torch.autograd.grad(Fn.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True),
+                    (qt, kt, vt), gt)
+            recompute_ms = timer(recompute, 5)
+            fwd_ms = timer(kernel_fwd, 10)
+            lib_ms = timer(library, 10)
+            pairs = s_len * (s_len + 1) // 2
+            # a flash backward: 5 products of the band (dS, dP, dV, dQ, dK)
+            bound = 10 * d * pairs * b * h / bf16_flops * 1e3
+            print(f"  swa at the training shape {tag}: kernel forward "
+                  f"{fwd_ms:.4f} ms, backward by plain recompute "
+                  f"{recompute_ms:.4f} ms a layer, a flash backward's bound "
+                  f"{bound:.4f} ms (operations); sdpa forward and backward "
+                  f"{lib_ms:.4f} ms", flush=True)
+            del qt, kt, vt, gt
+        del q, k, v, g, out, got, want, ref32
+    torch.cuda.empty_cache()
+
+    # ---- synchronous trainer, full width and depth ----------------------
+    llama = TC.get("llama3.2-3b")
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                             total_steps=TRAIN_SYNC["steps"])
+    tcfg = TS.TrainConfig()
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(15)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = TS.init_state(llama, mgen, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"  sync trainer: {llama.arch_id}, {llama.n_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters ({llama.dtype}), state drawn "
+          f"in {time.perf_counter() - t0:.2f} s; b={TRAIN_SYNC['batch']} "
+          f"s={TRAIN_SYNC['seq']}, remat on, lr {TRAIN_LR}", flush=True)
+    ds = SyntheticLM(DataConfig(vocab_size=llama.vocab_size,
+                                seq_len=TRAIN_SYNC["seq"],
+                                global_batch=TRAIN_SYNC["batch"]), dev)
+    step = TS.make_train_step(llama, ocfg, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    nll, walls, per_step, plain_per_step = [], [], [], []
+    train_launches = 0
+    for i in range(TRAIN_SYNC["steps"]):
+        batch = ds.batch(i)
+        smod.swa_attention.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        per_step.append(smod.swa_attention.launches)
+        plain_per_step.append(plain_cuda_calls["n"])
+        nll.append(float(metrics["nll"]))
+    train_launches += sum(per_step)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_SYNC["batch"] * TRAIN_SYNC["seq"]
+    steady = statistics.median(walls[1:])
+    print(f"  sync steps: nll " + ", ".join(f"{x:.4f}" for x in nll))
+    print(f"  sync step wall {', '.join(f'{w:.4f}' for w in walls)} s "
+          f"(median after the first {steady:.4f} s, "
+          f"{tokens / steady:.1f} tokens/s); peak device memory "
+          f"{peak / 2**30:.2f} GiB ({smi})", flush=True)
+    gate(all(np.isfinite(nll)) and nll[-1] < nll[0]
+         and all(n == 2 * llama.n_layers for n in per_step)
+         and all(n == llama.n_layers for n in plain_per_step),
+         f"sync trainer: losses finite, last nll {nll[-1]:.4f} below the "
+         f"first {nll[0]:.4f}; swa launches per step {per_step} (forward "
+         f"and remat recompute, {2 * llama.n_layers} expected); plain swa "
+         f"calls per step {plain_per_step} (the backward's recompute, one "
+         f"a layer)")
+
+    # one more step under the profiler: the backward recompute's share
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    backward = sops.SwaFunction.backward
+
+    def traced(ctx, g):
+        with record_function("swa_backward_recompute"):
+            return backward(ctx, g)
+    sops.SwaFunction.backward = staticmethod(traced)
+    try:
+        batch = ds.batch(TRAIN_SYNC["steps"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        sops.SwaFunction.backward = backward
+    events = prof.events()
+    # the range's own device-side mirror is not a kernel: leave it out
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.name != "swa_backward_recompute"]
+    kernel_us = sum(e.time_range.elapsed_us() for e in device)
+    marked = [e for e in events if e.name == "swa_backward_recompute"
+              and e.device_type == DeviceType.CPU]
+    rec_us = sum(e.device_time_total for e in marked)
+    print(f"  profiled sync step: wall {wall:.3f} s, device time "
+          f"{kernel_us / 1e6:.3f} s; backward recompute {rec_us / 1e3:.1f} "
+          f"ms over {len(marked)} ranges = "
+          f"{100 * rec_us / max(kernel_us, 1e-9):.1f}% of device time "
+          f"(under the profiler); by CUDA events {llama.n_layers} x "
+          f"{recompute_ms:.4f} ms = "
+          f"{100 * llama.n_layers * recompute_ms / 1e3 / steady:.1f}% of "
+          f"the median step wall", flush=True)
+    by_name = {}
+    for e in device:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    del state, metrics, prof, events, device
+    torch.cuda.empty_cache()
+
+    # ---- consensus trainer, full width, depth cut -----------------------
+    cc = TRAIN_CONSENSUS
+    cfg_c = dataclasses.replace(llama, n_layers=cc["layers"])
+    ocfg_c = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                               total_steps=cc["h_steps"] * cc["rounds"])
+    ds_c = SyntheticLM(DataConfig(vocab_size=llama.vocab_size,
+                                  seq_len=cc["seq"],
+                                  global_batch=cc["batch"]), dev)
+    print(f"  consensus trainer: {cfg_c.n_layers} of {llama.n_layers} "
+          f"layers (cut: two pods' stacked state is about 30 bytes a "
+          f"parameter), full width, {cc['pods']} pods, h_steps "
+          f"{cc['h_steps']}, {cc['rounds']} rounds, global batch "
+          f"{cc['batch']} at s={cc['seq']}", flush=True)
+    for scheme in CT.SCHEMES:
+        ccfg = CT.ConsensusConfig(n_pods=cc["pods"], scheme=scheme,
+                                  h_steps=cc["h_steps"])
+        mgen.manual_seed(16)
+        cstate = CT.init_state(cfg_c, mgen, ccfg, dev)
+        round_fn = CT.make_round_step(cfg_c, ocfg_c, tcfg, ccfg)
+        batches = pod_sharded_batches(ds_c, cc["pods"], cc["h_steps"])
+        torch.cuda.reset_peak_memory_stats()
+        nlls, walls, ok_rounds = [], [], True
+        smod.swa_attention.launches = 0
+        for r in range(cc["rounds"]):
+            batch = next(batches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cstate, metrics = round_fn(cstate, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            nlls.append(float(metrics["nll"]))
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in tree_leaves(cstate.theta_bar))
+            pods = list(tree_leaves(cstate.params))
+            bars = list(tree_leaves(cstate.theta_bar))
+            if scheme == "admm":
+                shape_ok = any(bool(lam.any()) for lam in
+                               tree_leaves(cstate.lam)) and any(
+                    not torch.equal(p[0], p[1]) for p in pods)
+            else:
+                shape_ok = all(torch.equal(p[i], tb) for p, tb in
+                               zip(pods, bars) for i in range(cc["pods"]))
+            ok_rounds &= finite and shape_ok
+        n_launch = smod.swa_attention.launches
+        train_launches += n_launch
+        want = 2 * cfg_c.n_layers * cc["pods"] * cc["h_steps"] * cc["rounds"]
+        gate(ok_rounds and nlls[-1] < nlls[0] and n_launch == want,
+             f"consensus {scheme}: theta_bar finite after every round and "
+             + ("duals non-zero, pods apart" if scheme == "admm" else
+                "every pod equal to theta_bar bitwise")
+             + f" {ok_rounds}; nll {', '.join(f'{x:.4f}' for x in nlls)}; "
+             f"round walls {', '.join(f'{w:.3f}' for w in walls)} s; peak "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; swa "
+             f"launches {n_launch} ({want} expected)")
+        del cstate, metrics, batch, pods, bars
+        torch.cuda.empty_cache()
+    launches["swa"] += train_launches
+    print(f"  swa launches on the training path {train_launches}",
+          flush=True)
+
+    # ---- the card against the CPU (reduced config, float32) -------------
+    red = TC.reduced(llama)
+    ocfg_r = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    cpu = torch.device("cpu")
+
+    def to(tree, device):
+        if isinstance(tree, dict):
+            return {k: to(v, device) for k, v in tree.items()}
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return type(tree)(*(to(v, device) for v in tree))
+        return tree.to(device, copy=True)
+
+    cgen = torch.Generator()
+    cgen.manual_seed(17)
+    on_cpu = TS.init_state(red, cgen, cpu)
+    on_card = to(on_cpu, dev)
+    start = to(on_cpu.params, cpu)
+    data = DataConfig(vocab_size=red.vocab_size, seq_len=TRAIN_REDUCED_SEQ,
+                      global_batch=4)
+    b_cpu, b_card = (SyntheticLM(data, x).batch(0) for x in (cpu, dev))
+    g_cpu, m_cpu = TS.grads_of(red, tcfg, on_cpu.params, b_cpu)
+    g_card, m_card = TS.grads_of(red, tcfg, on_card.params, b_card)
+    e_loss = abs(float(m_card["nll"]) - float(m_cpu["nll"])) \
+        / abs(float(m_cpu["nll"]))
+    e_grad = train_diff(torch, g_card, g_cpu)
+    signs = sum(int(((a.cpu() * b) < 0).sum()) for a, b in
+                zip(tree_leaves(g_card), tree_leaves(g_cpu)))
+    # AdamW from the same state and the CPU's gradients, card against CPU
+    same_cpu, same_card = to(on_cpu, cpu), to(on_cpu, dev)
+    adamw.update(ocfg_r, g_cpu, same_cpu.opt, same_cpu.params)
+    adamw.update(ocfg_r, to(g_cpu, dev), same_card.opt, same_card.params)
+    e_adam = train_diff(torch, same_card, same_cpu)
+    step_r = TS.make_train_step(red, ocfg_r, tcfg)
+    step_r(on_cpu, b_cpu)
+    step_r(on_card, b_card)
+    apart_by = ocfg_r.lr * TRAIN_APART
+    apart, e_step = train_split(torch, on_card.params, on_cpu.params, start,
+                                apart_by)
+    gate(e_loss <= GATE_TRAIN_LOSS and e_grad <= GATE_STATS
+         and e_adam <= GATE_TRAIN_ADAM and apart <= GATE_TRAIN_FLIPS
+         and e_step <= GATE_TRAIN_STEP,
+         f"reduced sync step, card against CPU: nll rel {e_loss:.2e}, "
+         f"gradients {e_grad:.2e} (largest per leaf, normwise; {signs} "
+         f"coordinates of opposite sign); AdamW from the same gradients "
+         f"rel {e_adam:.2e}; after the step {apart:.2e} of the parameters "
+         f"more than {apart_by:.0e} apart, the others within {e_step:.2e} "
+         f"of the update")
+    for scheme in CT.SCHEMES:
+        ccfg = CT.ConsensusConfig(n_pods=2, scheme=scheme, h_steps=2)
+        cgen.manual_seed(18)
+        c_cpu = CT.init_state(red, cgen, ccfg, cpu)
+        c_card = to(c_cpu, dev)
+        c_start = to(c_cpu, cpu)
+        round_fn = CT.make_round_step(red, ocfg_r, tcfg, ccfg)
+        bcpu = next(pod_sharded_batches(SyntheticLM(data, cpu), 2, 2))
+        bdev = next(pod_sharded_batches(SyntheticLM(data, dev), 2, 2))
+        c_cpu, m_cpu = round_fn(c_cpu, bcpu)
+        c_card, m_card = round_fn(c_card, bdev)
+        e_loss = abs(float(m_card["nll"]) - float(m_cpu["nll"])) \
+            / abs(float(m_cpu["nll"]))
+        a_bar, e_bar = train_split(torch, c_card.theta_bar,
+                                   c_cpu.theta_bar, c_start.theta_bar,
+                                   apart_by)
+        a_pods, e_pods = train_split(torch, c_card.params, c_cpu.params,
+                                     c_start.params, apart_by)
+        gate(e_loss <= GATE_TRAIN_LOSS and max(a_bar, a_pods)
+             <= GATE_TRAIN_FLIPS and max(e_bar, e_pods) <= GATE_TRAIN_STEP,
+             f"reduced {scheme} round, card against CPU: nll rel "
+             f"{e_loss:.2e}; more than {apart_by:.0e} apart: theta_bar "
+             f"{a_bar:.2e},"
+             f" pods {a_pods:.2e} of the coordinates; the others within "
+             f"{e_bar:.2e} / {e_pods:.2e} of the round's update")
+
+    # ---- resume: save after round 1, restore, round 2 -------------------
+    import tempfile
+    ccfg = CT.ConsensusConfig(n_pods=2, scheme="admm", h_steps=2)
+    round_fn = CT.make_round_step(red, ocfg_r, tcfg, ccfg)
+
+    def fresh():
+        cgen.manual_seed(19)
+        return to(CT.init_state(red, cgen, ccfg, cpu), dev)
+
+    def rounds(state, start_round, n):
+        batches = pod_sharded_batches(SyntheticLM(data, dev), 2, 2,
+                                      start_round=start_round)
+        for _ in range(n):
+            state, _ = round_fn(state, next(batches))
+        return state
+
+    run_a = rounds(fresh(), 0, 2)
+    run_b = rounds(fresh(), 0, 2)
+    spread = max_abs_diff(torch, run_a, run_b)
+    part = rounds(fresh(), 0, 1)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
+        CK.save(tmp, 1, part, extra={"scheme": "admm"})
+        restored = CK.restore(tmp, CK.latest_step(tmp), fresh())
+    exact = tree_equal(torch, restored, part)
+    resumed = rounds(restored, 1, 1)
+    d_resume = max_abs_diff(torch, resumed, run_a)
+    gate(exact and d_resume <= 2 * spread,
+         f"resume (reduced admm, saved after round 1): restore bitwise "
+         f"{exact}; resumed against uninterrupted, largest difference "
+         f"{d_resume:.3e}, two uninterrupted runs {spread:.3e} (within "
+         f"twice the spread; 0 means bitwise)")
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2964,6 +3433,8 @@ def main() -> int:
     phase14(torch, np, A, smi, gate, launches, plain_cuda_calls, nmod, dev,
             g_field, X_field, check_newton, time_newton, bucket_inputs,
             covered)
+    phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
+            bf16_flops, bw)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

@@ -1,6 +1,6 @@
 """Carry plans (with their fault, structure and telemetry specs),
-estimates, fault plans, stream states, Ising models and model parameters
-across from the reference package.
+estimates, fault plans, stream states, Ising models, model parameters and
+training states across from the reference package.
 
 The port keeps the reference's layouts by design, so these are checked
 identities: they validate what they are given and hand back the port's own
@@ -20,7 +20,10 @@ from .core.ising import IsingModel
 from .device import resolve_device
 from .models.common import ArchConfig, ParamSpec
 from .models.transformer import abstract_params
+from .optim.adamw import AdamWState
 from .stream.faults import FaultPlan
+from .train.consensus import ConsensusState
+from .train.step import TrainState
 
 
 def plan_from_reference(d: dict) -> Plan:
@@ -114,28 +117,86 @@ def local_fits_from_numpy(fits: Sequence[Optional[object]]) -> List[LocalFit]:
     return out
 
 
+def _tree_from_numpy(spec_tree, tree, cfg: ArchConfig, device, *,
+                     lead=(), dtype=None, name="params"):
+    """``tree`` (nested dicts of numpy arrays) checked key for key against
+    the port's spec of ``cfg``, each leaf of shape ``lead + spec shape``,
+    cast to ``dtype`` (default each spec's type) on ``device``."""
+    def convert(spec_node, node, path):
+        where = "/".join((name,) + path)
+        if isinstance(spec_node, ParamSpec):
+            arr = np.asarray(node)
+            want = tuple(lead) + spec_node.shape
+            if arr.shape != want:
+                raise ValueError(f"{where}: shape {arr.shape}, the port's "
+                                 f"spec has {want}")
+            if arr.dtype.name == "bfloat16":     # numpy has no bf16 of its own
+                arr = arr.astype(np.float32)
+            dt = dtype or spec_node.dtype or cfg.torch_dtype
+            return torch.tensor(arr).to(device=device, dtype=dt)
+        if not isinstance(node, dict) or set(node) != set(spec_node):
+            got = sorted(node) if isinstance(node, dict) else type(node)
+            raise ValueError(f"{where}: keys {got}, the port's spec has "
+                             f"{sorted(spec_node)}")
+        return {k: convert(spec_node[k], node[k], path + (k,))
+                for k in spec_node}
+    return convert(spec_tree, tree, ())
+
+
 def params_from_numpy(tree, cfg: ArchConfig, device=None):
     """The port's model parameters from the reference's parameter pytree
     (nested dicts of numpy arrays, e.g. ``jax.tree.map(np.asarray,
     model_init(cfg, key))``), each checked against the port's spec of
     ``cfg`` and cast to its dtype on ``device`` (default the CUDA card;
     raises without one)."""
-    device = resolve_device(device)
+    return _tree_from_numpy(abstract_params(cfg), tree, cfg,
+                            resolve_device(device))
 
-    def convert(spec_node, node, path):
-        if isinstance(spec_node, ParamSpec):
-            arr = np.asarray(node)
-            if arr.shape != spec_node.shape:
-                raise ValueError(f"{'/'.join(path)}: shape {arr.shape}, the "
-                                 f"port's spec has {spec_node.shape}")
-            if arr.dtype.name == "bfloat16":     # numpy has no bf16 of its own
-                arr = arr.astype(np.float32)
-            dt = spec_node.dtype or cfg.torch_dtype
-            return torch.tensor(arr).to(device=device, dtype=dt)
-        if not isinstance(node, dict) or set(node) != set(spec_node):
-            got = sorted(node) if isinstance(node, dict) else type(node)
-            raise ValueError(f"{'/'.join(path) or 'params'}: keys {got}, the "
-                             f"port's spec has {sorted(spec_node)}")
-        return {k: convert(spec_node[k], node[k], path + (k,))
-                for k in spec_node}
-    return convert(abstract_params(cfg), tree, ())
+
+def _step_from_numpy(step, shape, device) -> torch.Tensor:
+    arr = np.asarray(step)
+    if arr.shape != shape or arr.dtype.kind not in "iu":
+        raise ValueError(f"opt/step: {arr.dtype} of shape {arr.shape}; "
+                         f"expected integers of shape {shape}")
+    return torch.tensor(arr.astype(np.int32), device=device)
+
+
+def _adamw_from_numpy(opt, cfg: ArchConfig, device, lead=()):
+    spec = abstract_params(cfg)
+    return AdamWState(
+        step=_step_from_numpy(opt.step, tuple(lead), device),
+        m=_tree_from_numpy(spec, opt.m, cfg, device, lead=lead,
+                           dtype=torch.float32, name="opt/m"),
+        v=_tree_from_numpy(spec, opt.v, cfg, device, lead=lead,
+                           dtype=torch.float32, name="opt/v"))
+
+
+def train_state_from_numpy(state, cfg: ArchConfig, device=None):
+    """The port's :class:`~repro_torch.train.step.TrainState` from the
+    reference's (``jax.tree.map(np.asarray, state)``: ``params`` and
+    ``opt`` with ``step``, ``m`` and ``v``), every tree checked against the
+    port's spec of ``cfg``: parameters in their spec's types, moments in
+    float32, the step an int32 scalar, on ``device`` (default the CUDA
+    card)."""
+    device = resolve_device(device)
+    return TrainState(params=params_from_numpy(state.params, cfg, device),
+                      opt=_adamw_from_numpy(state.opt, cfg, device))
+
+
+def consensus_state_from_numpy(state, cfg: ArchConfig, n_pods: int,
+                               device=None):
+    """The port's :class:`~repro_torch.train.consensus.ConsensusState` from
+    the reference's: per-pod ``params``, moments and ``lam`` stacked on a
+    leading axis of ``n_pods``, per-pod step counters of shape
+    (``n_pods``,), and ``theta_bar`` of the parameters' shapes, each
+    checked against the port's spec of ``cfg`` (``lam`` in float32) on
+    ``device`` (default the CUDA card)."""
+    device = resolve_device(device)
+    spec, lead = abstract_params(cfg), (int(n_pods),)
+    return ConsensusState(
+        params=_tree_from_numpy(spec, state.params, cfg, device, lead=lead),
+        opt=_adamw_from_numpy(state.opt, cfg, device, lead=lead),
+        lam=_tree_from_numpy(spec, state.lam, cfg, device, lead=lead,
+                             dtype=torch.float32, name="lam"),
+        theta_bar=_tree_from_numpy(spec, state.theta_bar, cfg, device,
+                                   name="theta_bar"))

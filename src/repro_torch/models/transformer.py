@@ -4,13 +4,16 @@ port of ``repro.models.transformer`` for block kind ``"attn"`` with
 ``attn_kind="gqa"``.
 
 Block parameters are stacked (a leading layer axis), as in the reference,
-and a Python loop over the layer axis takes the place of ``lax.scan``.
+and a Python loop over the layer axis takes the place of ``lax.scan``; with
+gradients on, ``remat`` wraps each unit in ``torch.utils.checkpoint`` as
+the reference wraps its scan body in ``jax.checkpoint``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as A
@@ -77,6 +80,19 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _layers(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as views by
+    ``unbind``: its backward stacks the layers' gradients once, where a
+    view per layer (:func:`_layer`) adds a zero-filled stacked gradient
+    per layer."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
 def _block_apply(cfg, p, x, positions, *, window, return_cache, cache_len):
     h = apply_norm(cfg, p["norm1"], x)
     out = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
@@ -96,7 +112,12 @@ def _logits(cfg: ArchConfig, params, x):
     return x @ params["head"]
 
 
-def forward(cfg: ArchConfig, params: Dict, tokens, *,
+def _unit(cfg, p, x, positions, window):
+    return _block_apply(cfg, p, x, positions, window=window,
+                        return_cache=False, cache_len=0)[0]
+
+
+def forward(cfg: ArchConfig, params: Dict, tokens, *, remat: bool = True,
             return_cache: bool = False, cache_len: int = 0,
             window_override: Optional[int] = None):
     """Full-sequence forward -> (logits, aux_loss[, cache]).
@@ -104,17 +125,28 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *,
     tokens: (B, S) int64. With ``return_cache`` the per-layer KV caches,
     stacked on a leading layer axis and sized to ``cache_len`` (default S),
     are returned too: this is the prefill path. aux_loss is 0 (no MoE).
+    With gradients enabled and ``remat`` set (and no cache), each unit is
+    rematerialised in the backward (``checkpoint``, non-reentrant): only
+    its input is kept, and the unit's forward, the attention kernel
+    included, runs again. With gradients off ``remat`` changes nothing.
     """
     require_supported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device)
     window = cfg.window if window_override is None else window_override
+    rematerialise = remat and not return_cache and torch.is_grad_enabled()
     caches = []
-    for i in range(cfg.n_units):
-        x, c = _block_apply(cfg, _layer(params["units"]["b0"], i), x,
-                            positions, window=window,
-                            return_cache=return_cache, cache_len=cache_len)
+    for p in _layers(params["units"]["b0"], cfg.n_units):
+        if rematerialise:
+            # the forward draws no random numbers: no RNG state to replay
+            x, c = checkpoint(_unit, cfg, p, x, positions, window,
+                              use_reentrant=False,
+                              preserve_rng_state=False), None
+        else:
+            x, c = _block_apply(cfg, p, x, positions, window=window,
+                                return_cache=return_cache,
+                                cache_len=cache_len)
         caches.append(c)
     logits = _logits(cfg, params, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -258,10 +258,21 @@ def test_swa_kernel_refuses_what_it_does_not_take(dev):
     q, k, v = _qkv(dev, 1, 16, 3, 2, 64, torch.float32, seed=0)
     with pytest.raises(ValueError, match="multiple"):
         smod.swa_attention(q, k, v)
-    q, k, v = _qkv(dev, 1, 16, 2, 2, 64, torch.float32, seed=0)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        swa_op(q, k, v)
+    # what it does take now: gradients, through the autograd Function (the
+    # kernel forward, the plain version's recompute backward), equal to
+    # plain autograd bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.requires_grad_(True) for t in
+                   _qkv(dev, 2, 160, 6, 2, 64, dtype, seed=1))
+        g = torch.randn(q.shape, device=dev).to(dtype)
+        n0 = smod.swa_attention.launches
+        out = swa_op(q, k, v, window=50)
+        assert smod.swa_attention.launches == n0 + 1
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want = torch.autograd.grad(
+            smod.swa_attention_ref(q, k, v, window=50), (q, k, v), g)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert smod.swa_attention.launches == n0 + 1
 
 
 @pytest.mark.parametrize("C,n,p", [(1, 1001, 37), (1, 333, 130),
@@ -453,6 +464,54 @@ def test_reduced_llama_on_the_card_matches_the_cpu(dev):
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(dev):
+    """One synchronous train step of the reduced config (float32) on the
+    card and on the CPU from the same state and batch: the attention kernel
+    runs twice per layer (forward and the remat recompute), loss and
+    gradients agree at float32 (sums in another order). Adam's first step
+    is about lr * sign(g), so a coordinate whose gradient is at float32
+    noise level moves by an unpredictable amount up to 2 lr: after the step
+    at most 1e-4 of the parameters lie more than lr / 100 apart, and the
+    others within 1e-3 of the update's size (chip_smoke.py phase 15's
+    gates)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cfg = TC.reduced(TC.get("llama3.2-3b"))
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cpu = TS.init_state(cfg, gen, "cpu")
+    card = TS.TrainState(_to(cpu.params, dev),
+                         adamw.init(_to(cpu.params, dev)))
+    start = {k: v.clone() for k, v in cpu.params["units"]["b0"]["mlp"].items()}
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+    tcfg = TS.TrainConfig()
+    n0 = smod.swa_attention.launches
+    g_card, m_card = TS.grads_of(cfg, tcfg, card.params,
+                                 SyntheticLM(data, dev).batch(0))
+    assert smod.swa_attention.launches == n0 + 2 * cfg.n_layers
+    g_cpu, m_cpu = TS.grads_of(cfg, tcfg, cpu.params,
+                               SyntheticLM(data, "cpu").batch(0))
+    assert abs(float(m_card["nll"]) - float(m_cpu["nll"])) \
+        <= 1e-5 * float(m_cpu["nll"])
+    for a, b in zip(adamw.tree_leaves(g_card), adamw.tree_leaves(g_cpu)):
+        assert _rel(a.cpu(), b) <= 1e-4
+    step = TS.make_train_step(cfg, ocfg, tcfg)
+    step(card, SyntheticLM(data, dev).batch(0))
+    step(cpu, SyntheticLM(data, "cpu").batch(0))
+    apart = total = 0
+    for k, p0 in start.items():
+        p_card = card.params["units"]["b0"]["mlp"][k].cpu()
+        p_cpu = cpu.params["units"]["b0"]["mlp"][k]
+        near = (p_card - p_cpu).abs() <= ocfg.lr / 100
+        apart += int((~near).sum())
+        total += near.numel()
+        assert _rel(p_card[near] - p0[near], p_cpu[near] - p0[near]) <= 1e-3
+    assert apart <= 1e-4 * total
 
 
 @pytest.mark.parametrize("weights", ["prefix", "window discount"])
