@@ -148,6 +148,20 @@ Phases:
      reduced config on the card against the CPU; a consensus run saved
      after round 1, restored bitwise and resumed, against the
      uninterrupted run.
+ 16. the attention families of the model zoo at full width (ZOO: qwen2-moe
+     and minicpm3, phi3 and glm4 at full depth, chameleon cut to 16 and
+     llama4-scout to 6 layers, weights drawn on the card one model at a
+     time): the swa kernel against its plain version at each model's
+     prefill shape (MLA's 40/40 heads at width 96 with V zero-padded,
+     glm4's 16-way group), timed beside plain and SDPA; generate at
+     phase 8's shape twice (one launch a layer, bitwise equal tokens),
+     prefill seconds, decode ms a step and peak memory, teacher-forced
+     decode against the full forward (the expert models also in
+     float32), the experts' routing (the capacity path at prefill with
+     its dropped share, dropless decode), llama4-scout's prefill with
+     patch embeddings, each model's profiled prefill (busy share, the swa
+     kernel's device time); the six reduced configs on the card against
+     the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -159,6 +173,7 @@ without a result when there is no CUDA device or no repro_torch beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -309,6 +324,29 @@ TRAIN_REDUCED_SEQ, TRAIN_APART = 128, 1e-2
 GATE_TRAIN_LOSS, GATE_TRAIN_STEP, GATE_TRAIN_FLIPS = 1e-5, 1e-3, 1e-4
 GATE_TRAIN_ADAM = 1e-6
 
+#: phase 16's attention families, served one after another on one card at
+#: full width with random weights: (architecture, depth or None for the
+#: config's own). Depth is cut only where the weights do not fit
+ZOO = (
+    ("qwen2-moe-a2.7b", None),
+    ("minicpm3-4b", None),
+    ("phi3-mini-3.8b", None),
+    ("glm4-9b", None),
+    # 48 layers are 68.6 GB of bf16 weights, and materialize draws the
+    # stacked MLP leaf in float32 first (34.6 GB): they do not fit in 80 GB
+    ("chameleon-34b", 16),
+    # 48 layers are 215.6 GB of weights; the four-card version is item 12's
+    ("llama4-scout-17b-a16e", 6),
+)
+#: phase 16's teacher-forced tokens after the prompt
+ZOO_EXTRA = 4
+#: the expert models' teacher-forced check in float32 at full width: depth
+#: (float32 weights of all 24 qwen2-moe layers are 60.6 GB; a llama4-scout
+#: layer is 17.5 GB and its vocabulary's embedding and head 8.3 GB), and
+#: its gate (float32 sums in another order through a few layers)
+ZOO_F32_LAYERS = {"qwen2-moe-a2.7b": 4, "llama4-scout-17b-a16e": 1}
+GATE_TF32 = 1e-3
+
 
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
@@ -436,7 +474,7 @@ def device_profile(torch, label: str, fn):
     """The device's busy share of one call of ``fn`` and its top device
     kernels, under torch.profiler. Busy time is the union of the device
     events' intervals (kernels, copies, fills); the CPU ops that launched
-    them are not counted again."""
+    them are not counted again. Returns {kernel name: (us, count)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -465,6 +503,7 @@ def device_profile(torch, label: str, fn):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    return by_name
 
 
 def phase9(torch, np, A, graph, truth, X_field, smi, gate, launches,
@@ -2605,6 +2644,345 @@ def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
+            check_swa, time_swa) -> int:
+    """The attention families at full width (ZOO), one model at a time,
+    with weights drawn on the card from a seeded generator and freed
+    before the next: the swa kernel against its plain version at the
+    model's prefill shape (timed beside the plain version and SDPA);
+    generate at phase 8's shape
+    twice through the kernel path (one launch a layer, no plain attention
+    on a CUDA tensor, bitwise equal tokens); prefill seconds, decode ms
+    per step and peak memory; prefill and teacher-forced decode against
+    one full forward (GATE_SERVE; dropless for the expert models, since
+    decode routes dropless; their bf16 decode gated where every top-k
+    choice agrees with the forward's, and held within GATE_TF32 in
+    float32 at ZOO_F32_LAYERS); the routing of one prefill (the capacity
+    path, its dropped share) and one decode step (dropless) of each
+    expert model; llama4-scout's prefill with random patch embeddings and
+    decode steps after it; each model's profiled prefill (the device's
+    busy share, the swa kernel's device time a launch). Then the six
+    reduced configs (float32) on the card against the CPU. Returns the
+    swa launches of the main-path runs."""
+    import dataclasses
+
+    import repro_torch.configs as TC
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    t_phase = time.perf_counter()
+    print(f"phase 16: the attention families at full width ({smi})",
+          flush=True)
+    b, s_len, n_new = prefill_shape
+    total = 0
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+
+    def rel32(a, c):
+        """Normwise relative difference in float32, a batch row at a time
+        (a float32 copy of a 200k-word vocabulary's logits is 6.6 GB)."""
+        num = den = 0.0
+        for x, y in zip(a, c):
+            x, y = x.float(), y.float()
+            num += float((x - y).square().sum())
+            den += float(y.square().sum())
+        return (num / den) ** 0.5
+
+    @contextlib.contextmanager
+    def recording():
+        """TM.route with each call's (tokens, Routing) noted in the list
+        yielded (the tensors stay on the card until read)."""
+        plain, routes = TM.route, []
+
+        def noting(cfg, router, xt, n_groups=16):
+            r = plain(cfg, router, xt, n_groups)
+            routes.append((xt.shape[0], r))
+            return r
+        TM.route = noting
+        try:
+            yield routes
+        finally:
+            TM.route = plain
+
+    def teacher_forced(cfg, params, prompt, cont):
+        """Prefill of ``prompt`` and decode of ``cont`` (teacher-forced)
+        against one forward over both: (rel prefill, [rel decode a step],
+        finite, (top-k choices that differ, choices)). Decode routes
+        dropless (b tokens a step), so the expert models run dropless
+        here (a capacity of at least Tg slots an expert)."""
+        tf = cfg if not cfg.n_experts else dataclasses.replace(
+            cfg, capacity_factor=(cfg.n_experts + 0.5) / cfg.experts_per_tok)
+        b, s = prompt.shape
+        n = cont.shape[1]
+        torch.cuda.empty_cache()
+        with recording() as routes, torch.no_grad():
+            tok = torch.cat([prompt, cont], 1)
+            ref, _ = TT.forward(tf, params, tok)
+            logits, cache = TD.prefill(tf, params, prompt, s + n)
+            e_pre = rel32(logits, ref[:, :s])
+            finite = bool(torch.isfinite(ref).all())
+            del logits
+            e_dec = []
+            for t in range(n):
+                lg, cache = TT.decode_step(tf, params, cache,
+                                           tok[:, s + t:s + t + 1], s + t)
+                e_dec.append(rel32(lg[:, 0], ref[:, s + t]))
+            del ref, cache
+
+        def choices(t):
+            """Each layer's sorted top-k experts of the calls of t tokens."""
+            return torch.stack([r.gate_idx.reshape(t, -1).sort(-1).values
+                                for tt, r in routes if tt == t])
+
+        flips = (0, 0)
+        if cfg.n_experts:
+            dec = choices(b)                                # (n L, b, k)
+            layers = dec.shape[0] // n
+            fwd = choices(b * (s + n))                      # (L, b(s+n), k)
+            fwd = fwd.reshape(layers, b, s + n, -1)[:, :, s:]
+            dec = dec.reshape(n, layers, b, -1)
+            differ = (dec.permute(1, 2, 0, 3) != fwd).any(-1)
+            flips = (int(differ.sum()), differ.numel())
+        return e_pre, e_dec, finite, flips
+
+    for i, (arch, depth) in enumerate(ZOO):
+        full = TC.get(arch)
+        cfg = full if depth is None else dataclasses.replace(full,
+                                                             n_layers=depth)
+        mla = cfg.attn_kind == "mla"
+        h = cfg.n_heads
+        kh = h if mla else cfg.n_kv_heads
+        d = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.hd
+        what = (f"{cfg.n_experts} experts top-{cfg.experts_per_tok}"
+                if cfg.n_experts else "dense") + (", MLA" if mla else "") \
+            + (", qk-norm" if cfg.qk_norm else "") \
+            + (f", {cfg.n_patches} patches" if cfg.n_patches else "")
+        print(f"  {arch}: {cfg.n_layers} of {full.n_layers} layers, "
+              f"d={cfg.d_model}, {h}/{kh} attention heads at width {d}, "
+              f"{what}, {cfg.dtype}", flush=True)
+
+        # the kernel at this model's prefill shape
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1600 + i)
+        q = torch.randn((b, s_len, h, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, s_len, kh, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        if mla:    # V zero-padded from v_head_dim to the q k width
+            v = torch.nn.functional.pad(v[..., :cfg.v_head_dim],
+                                        (0, d - cfg.v_head_dim))
+        tag = f"{arch} prefill b={b} s={s_len} h/kh={h}/{kh} d={d}"
+        check_swa(tag, q, k, v, 0)
+        time_swa(tag, q, k, v, 0, 10)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = TT.model_init(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        n_params = sum(t.numel() for t in leaves(params))
+        print(f"    weights: {n_params / 1e9:.3f} B parameters, "
+              f"{nbytes / 1e9:.3f} GB, drawn on the card in "
+              f"{time.perf_counter() - t0:.2f} s (peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)",
+              flush=True)
+        prompt = torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                               device=dev)
+        TD.generate(cfg, params, prompt[:1, :64], 2)    # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def serve(label):
+            nonlocal total
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = TD.generate(cfg, params, prompt, n_new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            nl, pc = smod.swa_attention.launches, plain_cuda_calls["n"]
+            total += nl
+            gate(nl == cfg.n_layers and pc == 0 and out.shape == (b, n_new),
+                 f"{arch} {label}: generate {tuple(out.shape)} in "
+                 f"{wall:.3f} s ({out.numel() / wall:.1f} tokens/s end to "
+                 f"end); flash-attention launches {nl} (one prefill of "
+                 f"{cfg.n_layers} layers), plain calls on CUDA tensors {pc}")
+            return out
+
+        out1 = serve(f"b={b} prompt={s_len}")
+        out2 = serve(f"b={b} prompt={s_len}, again")
+        gate(torch.equal(out1, out2), f"{arch}: greedy decoding gives "
+             f"identical tokens on a second run")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TD.prefill(cfg, params, prompt, s_len + n_new)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        last = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        del logits
+        step = TD.make_serve_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_new - 1):
+            last, _, cache = step(params, cache, last, s_len + t)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / (n_new - 1)
+        del cache
+        print(f"    prefill {t_pre:.4f} s ({b * s_len / t_pre:.0f} prompt "
+              f"tokens/s), decode {1e3 * t_dec:.3f} ms per step "
+              f"({b / t_dec:.1f} tokens/s at batch {b}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({smi})", flush=True)
+        gate(finite, f"{arch}: prefill logits finite")
+
+        e_pre, e_dec, finite, flips = teacher_forced(cfg, params, prompt,
+                                                     out1[:, :ZOO_EXTRA])
+        # a top-k choice that differs (bf16 rounding between the decode and
+        # the forward paths, among near-uniform random router
+        # probabilities) makes a different function: the bf16 decode is
+        # gated only where every choice agreed, and the expert models'
+        # decode continuation is held in float32 below
+        gate(finite and e_pre <= GATE_SERVE
+             and (max(e_dec) <= GATE_SERVE or flips[0] > 0),
+             f"{arch}: prefill + teacher-forced decode against one forward "
+             f"over {s_len + ZOO_EXTRA} tokens"
+             + (" (both dropless)" if cfg.n_experts else "")
+             + f": rel prefill {e_pre:.2e}, decode "
+             + ", ".join(f"{e:.2e}" for e in e_dec)
+             + (f"; {flips[0]} of {flips[1]} (token, layer) top-"
+                f"{cfg.experts_per_tok} choices differ between decode and "
+                f"the forward" if cfg.n_experts else ""))
+        torch.cuda.empty_cache()
+
+        if cfg.n_experts:
+            with recording() as routes:
+                logits, cache = TD.prefill(cfg, params, prompt, s_len + 1)
+                TT.decode_step(cfg, params, cache,
+                               torch.argmax(logits[:, -1:, :cfg.vocab_size],
+                                            -1), s_len)
+            del logits, cache
+            # (tokens, capacity, tokens a group, pairs, dropped pairs)
+            routed = [(t, r.cap, t // r.keep.shape[0], r.keep.numel(),
+                       int((~r.keep).sum())) for t, r in routes]
+            pre, dec = routed[:cfg.n_layers], routed[cfg.n_layers:]
+            pairs = sum(r[3] for r in pre)
+            dropped = sum(r[4] for r in pre)
+            gate(len(dec) == cfg.n_layers
+                 and all(r[0] > TM.DROPLESS_TOKENS and r[1] < r[2]
+                         for r in pre)
+                 and all(r[0] <= TM.DROPLESS_TOKENS and r[1] == r[2]
+                         and r[4] == 0 for r in dec),
+                 f"{arch}: prefill routes {pre[0][0]} tokens on the capacity "
+                 f"path ({pre[0][1]} slots an expert for {pre[0][2]} tokens "
+                 f"a group), {dropped} of {pairs} (token, slot) pairs "
+                 f"dropped ({100 * dropped / pairs:.2f}%, all layers); "
+                 f"decode routes {dec[0][0]} tokens dropless")
+
+        if cfg.n_patches:
+            patches = torch.randn((b, cfg.n_patches, cfg.d_model),
+                                  generator=gen, device=dev) \
+                .to(cfg.torch_dtype)
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = TD.prefill(cfg, params, prompt, s_len + n_new,
+                                       patch_embeds=patches)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            nl, pc = smod.swa_attention.launches, plain_cuda_calls["n"]
+            total += nl
+            finite = bool(torch.isfinite(logits).all())
+            last = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+            del logits
+            outs = []
+            for t in range(n_new - 1):
+                last, lg, cache = step(params, cache, last, s_len + t)
+                outs.append(last)
+                finite = finite and bool(torch.isfinite(lg).all())
+            del cache
+            same = torch.equal(torch.cat(outs, 1), out1[:, 1:])
+            gate(nl == cfg.n_layers and pc == 0 and finite,
+                 f"{arch}: prefill with {cfg.n_patches} random patch "
+                 f"embeddings in {t_pre:.4f} s, then {n_new - 1} decode "
+                 f"steps: logits finite, flash-attention launches {nl}, "
+                 f"plain calls on CUDA tensors {pc}; tokens equal to the "
+                 f"text-only run's {same}")
+
+        # the busy share of a prefill, and the swa kernel's device time at
+        # this model's shape from the same trace
+        torch.cuda.empty_cache()
+        by_name = device_profile(
+            torch, f"{arch} prefill b={b} prompt={s_len}",
+            lambda: TD.prefill(cfg, params, prompt, s_len + n_new))
+        us, n = map(sum, zip(*[v for name, v in by_name.items()
+                               if "swa_" in name] or [(0.0, 0)]))
+        print(f"    swa device time {us / 1e3 / max(n, 1):.4f} ms a launch "
+              f"({n} launches in the profiled prefill)", flush=True)
+        cont = out1[:, :ZOO_EXTRA]
+        del params, out1, out2
+        torch.cuda.empty_cache()
+
+        if cfg.n_experts:
+            # float32 at full width, depth cut to fit float32 weights
+            cfg32 = dataclasses.replace(
+                cfg, n_layers=ZOO_F32_LAYERS[arch], dtype="float32")
+            params = TT.model_init(cfg32, gen, device=dev)
+            e_pre, e_dec, finite, flips = teacher_forced(cfg32, params,
+                                                         prompt, cont)
+            gate(finite and max([e_pre] + e_dec) <= GATE_TF32,
+                 f"{arch} float32, {cfg32.n_layers} layers: prefill + "
+                 f"teacher-forced decode against one forward (both "
+                 f"dropless): rel prefill {e_pre:.2e}, decode "
+                 + ", ".join(f"{e:.2e}" for e in e_dec)
+                 + f"; {flips[0]} of {flips[1]} top-"
+                 f"{cfg.experts_per_tok} choices differ")
+            del params
+            torch.cuda.empty_cache()
+        del prompt, cont
+
+    # ---- the reduced configs on the card against the CPU (float32) ------
+    for arch, _ in ZOO:
+        red = TC.reduced(TC.get(arch))
+        cgen = torch.Generator()
+        cgen.manual_seed(16)
+        on_cpu = TT.model_init(red, cgen, "cpu")
+        on_card = _tree_to(on_cpu, dev)
+        tok = torch.randint(0, red.vocab_size, (2, 64), generator=cgen)
+        pe = (torch.randn((2, red.n_patches, red.d_model), generator=cgen)
+              if red.n_patches else None)
+        smod.swa_attention.launches = 0
+        want, want_aux = TT.forward(red, on_cpu, tok, patch_embeds=pe)
+        got, aux = TT.forward(red, on_card, tok.to(dev),
+                              patch_embeds=None if pe is None else pe.to(dev))
+        nl = smod.swa_attention.launches
+        e = rel_err(got.cpu(), want)
+        e_aux = abs(float(aux) - float(want_aux)) / max(abs(float(want_aux)),
+                                                        1e-30)
+        gate(e <= GATE_STATS and (not red.n_experts or e_aux <= GATE_STATS)
+             and nl == red.n_layers,
+             f"reduced {arch} (float32) on the card against the CPU: logits "
+             f"rel {e:.2e}, aux {float(aux):.6f} against "
+             f"{float(want_aux):.6f}; flash-attention launches {nl}")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def _tree_to(tree, device):
+    return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in tree.items()}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3435,6 +3813,8 @@ def main() -> int:
             covered)
     phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
             bf16_flops, bw)
+    launches["swa"] += phase16(torch, smi, gate, plain_cuda_calls, dev,
+                               PREFILL, check_swa, time_swa)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

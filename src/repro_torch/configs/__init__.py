@@ -29,7 +29,15 @@ ARCH_IDS = (
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
 #: architectures whose blocks the port carries
-PORTED = ("llama3_2_3b",)
+PORTED = (
+    "qwen2_moe_a2_7b",
+    "phi3_mini_3_8b",
+    "llama3_2_3b",
+    "glm4_9b",
+    "chameleon_34b",
+    "llama4_scout_17b_a16e",
+    "minicpm3_4b",
+)
 
 
 def get(arch_id: str) -> ArchConfig:
@@ -46,8 +54,7 @@ def get(arch_id: str) -> ArchConfig:
 
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """Shrink a config to a CPU-runnable variant of the same family:
-    <=2 pattern repeats, d_model<=256, tiny vocab, float32. Only the fields
-    of the dense GQA blocks the port carries are shrunk."""
+    <=2 pattern repeats, d_model<=256, <=4 experts, tiny vocab, float32."""
     n_layers = len(cfg.pattern) * min(2, max(1, cfg.n_units))
     d_model = min(cfg.d_model, 256)
     n_heads = max(2, min(cfg.n_heads, 4))
@@ -64,4 +71,20 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         max_target_len=2048,
         dtype="float32",
     )
+    if cfg.n_experts:
+        repl.update(n_experts=4,
+                    experts_per_tok=min(cfg.experts_per_tok, 2),
+                    n_shared_experts=min(cfg.n_shared_experts, 1),
+                    d_expert=min(cfg.d_expert or 256, 256))
+    if cfg.enc_dec:
+        repl.update(n_enc_layers=2, n_frames=16)
+    if cfg.n_patches:
+        repl.update(n_patches=4)
+    if cfg.rglru_width:
+        repl.update(rglru_width=d_model)
+    if cfg.attn_kind == "mla":
+        repl.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_dim=32,
+                    qk_rope_dim=16, v_head_dim=32, head_dim=48)
+    if cfg.mlstm_heads:
+        repl.update(mlstm_heads=2)
     return dataclasses.replace(cfg, **repl)

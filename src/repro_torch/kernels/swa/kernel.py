@@ -15,6 +15,8 @@ from ..build import LIBRARIES, check
 from .ref import swa_attention_ref
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head widths the kernel is instantiated for
+HEAD_WIDTHS = (64, 96, 128, 256)
 #: cudaErrorNotSupported: the bfloat16 kernel at d = 64 and 128 reads K and V
 #: by TMA only, and no tensor map could be made for them
 _NO_TENSOR_MAP = 801

@@ -1,2 +1,3 @@
-"""The transformer substrate of the port: dense GQA decoders (common
-pieces, attention, composition, decoding)."""
+"""The transformer substrate of the port: decoders of attention blocks,
+dense or with sparse experts, GQA or latent attention (common pieces,
+attention, experts, composition, decoding)."""

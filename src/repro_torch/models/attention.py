@@ -1,5 +1,6 @@
-"""GQA attention blocks: full-sequence (train/prefill) and one-token decode
-over a KV cache. The port of the GQA part of ``repro.models.attention``.
+"""Attention blocks: GQA and MLA (latent KV compression, minicpm3-style),
+full-sequence (train/prefill) and one-token decode over a cache. The port
+of ``repro.models.attention`` without cross-attention.
 
 ``sdpa`` takes the flash-attention kernel (``repro_torch.kernels.swa``) for
 a CUDA tensor, as the reference takes its Pallas kernel for causal attention
@@ -7,7 +8,9 @@ on the TPU. On the CPU it follows the reference's dispatch: a blocked
 online-softmax scan over KV blocks above ``BLOCK_THRESHOLD`` query rows,
 materialised scores below it. K and V may come with fewer heads than q (the
 kernel maps heads; the plain paths repeat them), so ``gqa_apply`` hands them
-over un-repeated.
+over un-repeated. A head width the kernel is not instantiated for (the
+reduced MLA config's 48) is zero-padded up to the next one it is, with q
+scaled so that the kernel's 1 / sqrt(width) is the reference's.
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ import math
 from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as Fn
 
 from ..kernels.swa.ops import swa_op
+from ..kernels.swa.kernel import HEAD_WIDTHS
 from .common import ArchConfig, apply_rope, rms_norm, spec
 
 BLOCK_THRESHOLD = 8192
@@ -47,6 +52,28 @@ def gqa_spec(cfg: ArchConfig, stack: int = 0):
         p["k_norm"] = spec(st + (hd,), sa + (None,), init="ones",
                            dtype=torch.float32)
     return p
+
+
+def mla_spec(cfg: ArchConfig, stack: int = 0):
+    st = (stack,) if stack else ()
+    sa = (None,) if stack else ()
+    qk_hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return {
+        "wq_a": spec(st + (cfg.d_model, cfg.q_lora_rank), sa + (None, None)),
+        "q_a_norm": spec(st + (cfg.q_lora_rank,), sa + (None,), init="ones",
+                         dtype=torch.float32),
+        "wq_b": spec(st + (cfg.q_lora_rank, cfg.n_heads * qk_hd),
+                     sa + (None, "model")),
+        "wkv_a": spec(st + (cfg.d_model, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                      sa + (None, None)),
+        "kv_a_norm": spec(st + (cfg.kv_lora_rank,), sa + (None,), init="ones",
+                          dtype=torch.float32),
+        "wkv_b": spec(st + (cfg.kv_lora_rank,
+                            cfg.n_heads * (cfg.qk_nope_dim + cfg.v_head_dim)),
+                      sa + (None, "model")),
+        "wo": spec(st + (cfg.n_heads * cfg.v_head_dim, cfg.d_model),
+                   sa + ("model", None)),
+    }
 
 
 # ---------------------------------------------------------------- core math
@@ -103,6 +130,21 @@ def _blocked_attention(q, k, v, *, window: int):
     return out.to(q.dtype)
 
 
+def _kernel_attention(q, k, v, *, window: int):
+    """The flash-attention kernel (its plain version on a CPU tensor), at
+    the narrowest instantiated head width at least q's: a narrower width is
+    zero-padded, with q scaled by sqrt(padded / d) so the kernel's
+    1 / sqrt(padded) scale gives the reference's 1 / sqrt(d)."""
+    d = q.shape[-1]
+    dp = min((w for w in HEAD_WIDTHS if w >= d), default=d)
+    if dp == d:
+        return swa_op(q, k, v, window=window)
+    pad = (0, dp - d)
+    out = swa_op(Fn.pad(q * math.sqrt(dp / d), pad), Fn.pad(k, pad),
+                 Fn.pad(v, pad), window=window)
+    return out[..., :d]
+
+
 def sdpa(q, k, v, *, window: int = 0, force_blocked: Optional[bool] = None):
     """Causal attention dispatch. q (B,S,H,D); k, v (B,S,KH,D), H % KH == 0.
 
@@ -111,7 +153,7 @@ def sdpa(q, k, v, *, window: int = 0, force_blocked: Optional[bool] = None):
     repeated to H heads for both).
     """
     if q.is_cuda:
-        return swa_op(q, k, v, window=window)
+        return _kernel_attention(q, k, v, window=window)
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
     blocked = (q.shape[1] > BLOCK_THRESHOLD if force_blocked is None
@@ -230,3 +272,77 @@ def gqa_decode(cfg: ArchConfig, p: Dict, x, cache: Dict, pos: int, *,
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, cache["v"])
     out = out.reshape(b, 1, cfg.n_heads * hd) @ p["wo"]
     return out, cache
+
+
+# --------------------------------------------------------------- MLA block
+def mla_apply(cfg: ArchConfig, p: Dict, x, positions, *,
+              return_cache: bool = False, cache_len: int = 0):
+    """Multi-head Latent Attention, full-sequence path. x: (B, S, d).
+
+    The cache holds the compressed latent, un-normalised, beside the rotated
+    shared rope key. Attention runs at head width nope + rope, with V
+    zero-padded to it and sliced back, as the reference does."""
+    b, s, _ = x.shape
+    nh, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    q = rms_norm(x @ p["wq_a"], p["q_a_norm"]) @ p["wq_b"]
+    q = q.reshape(b, s, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = x @ p["wkv_a"]                                  # (B,S,rank+dr)
+    c_kv = rms_norm(kv_a[..., :cfg.kv_lora_rank], p["kv_a_norm"])
+    k_rope = kv_a[..., cfg.kv_lora_rank:][:, :, None, :]   # shared by heads
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, nh, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    cache = None
+    if return_cache:
+        entry = torch.cat([kv_a[..., :cfg.kv_lora_rank], k_rope[:, :, 0, :]],
+                          dim=-1)
+        cache = {"ckv": Fn.pad(entry, (0, 0, 0, (cache_len or s) - s))}
+    k_rope = k_rope.expand(b, s, nh, dr)
+    q_full = torch.cat([q_nope, q_rope], -1)
+    k_full = torch.cat([k_nope, k_rope], -1)
+    v_p = Fn.pad(v, (0, dn + dr - dv)) if dv < dn + dr else v
+    out = sdpa(q_full, k_full, v_p, window=cfg.window)
+    out = out[..., :dv].reshape(b, s, nh * dv) @ p["wo"]
+    return (out, cache) if return_cache else out
+
+
+def mla_cache_spec(cfg: ArchConfig, batch: int, max_len: int, stack: int = 0):
+    """The compressed latent (kv_lora_rank + rope dims) per position."""
+    st = (stack,) if stack else ()
+    shape = st + (batch, max_len, cfg.kv_lora_rank + cfg.qk_rope_dim)
+    return {"ckv": TensorSpec(shape, cfg.torch_dtype)}
+
+
+def mla_decode(cfg: ArchConfig, p: Dict, x, cache: Dict, pos: int):
+    """One-token MLA decode from the compressed cache, written in place:
+    every step re-normalises the whole latent and expands it through
+    ``wkv_b``, as the reference does (no weight absorption)."""
+    b = x.shape[0]
+    nh, dn, dr, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, \
+        cfg.v_head_dim
+    rank = cfg.kv_lora_rank
+    q = rms_norm(x @ p["wq_a"], p["q_a_norm"]) @ p["wq_b"]
+    q = q.reshape(b, 1, nh, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    kv_a = x @ p["wkv_a"]                                   # (B,1,rank+dr)
+    pp = torch.full((1,), pos, device=x.device)
+    q_rope = apply_rope(q_rope, pp, cfg.rope_theta)
+    kr_new = apply_rope(kv_a[:, :, None, rank:], pp, cfg.rope_theta)
+    ckv = cache["ckv"]
+    ckv[:, pos] = torch.cat([kv_a[:, 0, :rank], kr_new[:, 0, 0]], -1) \
+        .to(ckv.dtype)
+    c_all = rms_norm(ckv[..., :rank], p["kv_a_norm"])       # (B,T,rank)
+    kr_all = ckv[..., rank:]                                # (B,T,dr)
+    kv = (c_all @ p["wkv_b"]).reshape(b, -1, nh, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    valid = torch.arange(ckv.shape[1], device=x.device) <= pos
+    s = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+         + torch.einsum("bqhd,bkd->bhqk", q_rope, kr_all)).to(torch.float32)
+    s = s / math.sqrt(dn + dr)
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(x.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, nh * dv)
+    return out @ p["wo"], cache

@@ -35,10 +35,12 @@ def make_serve_step(cfg: ArchConfig, *, window_override: Optional[int] = None,
 
 
 def prefill(cfg: ArchConfig, params, tokens, max_len: int, *,
-            window_override: Optional[int] = None):
+            patch_embeds=None, window_override: Optional[int] = None):
     """Run the full-sequence forward and return (logits, cache) with the
-    cache sized to ``max_len`` (prompt written at positions [0, S))."""
-    logits, _, cache = T.forward(cfg, params, tokens, return_cache=True,
+    cache sized to ``max_len`` (prompt written at positions [0, S));
+    ``patch_embeds`` as in :func:`~repro_torch.models.transformer.forward`."""
+    logits, _, cache = T.forward(cfg, params, tokens,
+                                 patch_embeds=patch_embeds, return_cache=True,
                                  cache_len=max_len,
                                  window_override=window_override)
     return logits, cache

@@ -1,10 +1,13 @@
-"""Model composition for the dense GQA decoder: parameters, full-sequence
-forward (the prefill path), KV caches and the one-token decode step. The
-port of ``repro.models.transformer`` for block kind ``"attn"`` with
-``attn_kind="gqa"``.
+"""Model composition: the block registry for attention blocks (GQA or MLA
+attention with a dense MLP, ``"attn"``; GQA attention with sparse experts,
+``"attn_moe"``), parameters, full-sequence forward (the prefill path), the
+caches and the one-token decode step. The port of
+``repro.models.transformer`` for those two block kinds.
 
-Block parameters are stacked (a leading layer axis), as in the reference,
-and a Python loop over the layer axis takes the place of ``lax.scan``; with
+Layers are grouped into repeating units (the config's ``pattern``); each
+pattern slot ``b{slot}`` has parameters stacked on a leading unit axis, and
+remainder layers ``r{r}`` (depth % pattern) are unstacked, as in the
+reference. A Python loop over units takes the place of ``lax.scan``; with
 gradients on, ``remat`` wraps each unit in ``torch.utils.checkpoint`` as
 the reference wraps its scan body in ``jax.checkpoint``.
 """
@@ -17,39 +20,51 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import attention as A
+from . import moe as M
 from .common import (ArchConfig, apply_norm, init_params, mlp_apply,
                      mlp_spec, norm_spec, spec)
 
 #: what the port does not carry yet, and the ROADMAP.md item that owes it
 _LATER = "ROADMAP.md queue 1, item 16"
+#: the block kinds the port carries
+KINDS = ("attn", "attn_moe")
 
 
 def require_supported(cfg: ArchConfig) -> None:
     """Raise unless the port carries every block of ``cfg``."""
     missing = []
-    if tuple(cfg.pattern) != ("attn",):
-        missing.append(f"block pattern {cfg.pattern}")
-    if cfg.attn_kind != "gqa":
+    other = sorted(set(cfg.pattern) - set(KINDS))
+    if other:
+        missing.append(f"block kinds {other}")
+    if cfg.attn_kind not in ("gqa", "mla"):
         missing.append(f"attn_kind={cfg.attn_kind!r}")
-    if cfg.enc_dec or cfg.n_patches:
-        missing.append("encoder-decoder and multimodal inputs")
+    if cfg.enc_dec:
+        missing.append("the encoder-decoder")
     if cfg.pos_emb not in ("rope", "none"):
         missing.append(f"pos_emb={cfg.pos_emb!r}")
     if missing:
         raise NotImplementedError(
             f"{cfg.arch_id}: {', '.join(missing)} not ported yet ({_LATER}); "
-            f"the port carries dense GQA decoders")
+            f"the port carries the block kinds {', '.join(KINDS)}")
 
 
 def _stack(tree, stack: int):
+    if not stack:
+        return tree
     return {k: spec((stack,) + v.shape, (None,) + v.axes, v.init, v.scale,
                     v.dtype) for k, v in tree.items()}
 
 
-def _block_spec(cfg: ArchConfig, stack: int):
-    return {"norm1": norm_spec(cfg, stack), "norm2": norm_spec(cfg, stack),
-            "attn": A.gqa_spec(cfg, stack),
-            "mlp": _stack(mlp_spec(cfg), stack)}
+def _block_spec(cfg: ArchConfig, kind: str, stack: int):
+    p = {"norm1": norm_spec(cfg, stack), "norm2": norm_spec(cfg, stack)}
+    if kind == "attn_moe":
+        p["attn"] = A.gqa_spec(cfg, stack)
+        p["moe"] = M.moe_spec(cfg, stack)
+        return p
+    p["attn"] = (A.mla_spec(cfg, stack) if cfg.attn_kind == "mla"
+                 else A.gqa_spec(cfg, stack))
+    p["mlp"] = _stack(mlp_spec(cfg), stack)
+    return p
 
 
 def abstract_params(cfg: ArchConfig):
@@ -59,11 +74,19 @@ def abstract_params(cfg: ArchConfig):
     tree: Dict[str, Any] = {
         "embed": spec((vp, d), ("vocab", None), scale=1.0),
         "final_norm": norm_spec(cfg),
-        "units": {"b0": _block_spec(cfg, cfg.n_units)},
+        "units": {f"b{slot}": _block_spec(cfg, kind, cfg.n_units)
+                  for slot, kind in enumerate(cfg.pattern)},
     }
     if not cfg.tie_embeddings:
         tree["head"] = spec((d, vp), (None, "vocab"))
+    if cfg.n_rem_layers:
+        tree["rem"] = {f"r{r}": _block_spec(cfg, _rem_kind(cfg, r), 0)
+                       for r in range(cfg.n_rem_layers)}
     return tree
+
+
+def _rem_kind(cfg: ArchConfig, r: int) -> str:
+    return cfg.pattern[r % len(cfg.pattern)]
 
 
 def model_init(cfg: ArchConfig, generator: torch.Generator, device=None):
@@ -93,16 +116,47 @@ def _layers(tree, n: int):
     return out
 
 
-def _block_apply(cfg, p, x, positions, *, window, return_cache, cache_len):
+def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
+                 cache_len):
+    """Full-sequence block. Returns (x, aux loss, cache|None); the aux
+    loss is a float32 scalar tensor for an expert block, else 0.0."""
     h = apply_norm(cfg, p["norm1"], x)
-    out = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
-                      return_cache=return_cache, cache_len=cache_len)
+    if cfg.attn_kind == "mla":
+        out = A.mla_apply(cfg, p["attn"], h, positions,
+                          return_cache=return_cache, cache_len=cache_len)
+    else:
+        out = A.gqa_apply(cfg, p["attn"], h, positions, window=window,
+                          return_cache=return_cache, cache_len=cache_len)
     cache = None
     if return_cache:
         out, cache = out
     x = x + out
-    x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
-    return x, cache
+    h = apply_norm(cfg, p["norm2"], x)
+    if kind == "attn_moe":
+        out, aux = M.moe_apply(cfg, p["moe"], h)
+        return x + out, aux, cache
+    return x + mlp_apply(cfg, p["mlp"], h), 0.0, cache
+
+
+def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
+    h = apply_norm(cfg, p["norm1"], x)
+    if cfg.attn_kind == "mla":
+        out, cache = A.mla_decode(cfg, p["attn"], h, cache, pos)
+    else:
+        out, cache = A.gqa_decode(cfg, p["attn"], h, cache, pos,
+                                  window=window)
+    x = x + out
+    h = apply_norm(cfg, p["norm2"], x)
+    if kind == "attn_moe":
+        return x + M.moe_apply(cfg, p["moe"], h)[0]
+    return x + mlp_apply(cfg, p["mlp"], h)
+
+
+def _block_cache(cfg: ArchConfig, batch: int, max_len: int, stack: int,
+                 window: int):
+    if cfg.attn_kind == "mla":
+        return A.mla_cache_spec(cfg, batch, max_len, stack)
+    return A.gqa_cache_spec(cfg, batch, max_len, stack, window=window)
 
 
 def _logits(cfg: ArchConfig, params, x):
@@ -112,48 +166,77 @@ def _logits(cfg: ArchConfig, params, x):
     return x @ params["head"]
 
 
-def _unit(cfg, p, x, positions, window):
-    return _block_apply(cfg, p, x, positions, window=window,
-                        return_cache=False, cache_len=0)[0]
+def _unit(cfg, p, x, positions, window, return_cache=False, cache_len=0):
+    """One unit: the pattern's blocks in order -> (x, aux, {slot: cache})."""
+    aux, caches = 0.0, {}
+    for slot, kind in enumerate(cfg.pattern):
+        x, a, caches[f"b{slot}"] = _block_apply(
+            cfg, kind, p[f"b{slot}"], x, positions, window=window,
+            return_cache=return_cache, cache_len=cache_len)
+        aux = aux + a
+    return x, aux, caches
 
 
-def forward(cfg: ArchConfig, params: Dict, tokens, *, remat: bool = True,
-            return_cache: bool = False, cache_len: int = 0,
-            window_override: Optional[int] = None):
+def _remat_unit(cfg, p, x, positions, window):
+    return _unit(cfg, p, x, positions, window)[:2]
+
+
+def _stack_caches(caches):
+    """Per-unit {slot: {key: tensor}} -> {slot: {key: stacked tensor}}."""
+    return {slot: {k: torch.stack([c[slot][k] for c in caches])
+                   for k in caches[0][slot]} for slot in caches[0]}
+
+
+def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
+            remat: bool = True, return_cache: bool = False,
+            cache_len: int = 0, window_override: Optional[int] = None):
     """Full-sequence forward -> (logits, aux_loss[, cache]).
 
-    tokens: (B, S) int64. With ``return_cache`` the per-layer KV caches,
-    stacked on a leading layer axis and sized to ``cache_len`` (default S),
-    are returned too: this is the prefill path. aux_loss is 0 (no MoE).
-    With gradients enabled and ``remat`` set (and no cache), each unit is
-    rematerialised in the backward (``checkpoint``, non-reentrant): only
-    its input is kept, and the unit's forward, the attention kernel
-    included, runs again. With gradients off ``remat`` changes nothing.
+    tokens: (B, S) int64. ``patch_embeds`` (B, n_patches, d), for a config
+    with ``n_patches``, replaces the first n_patches embedding rows (early
+    fusion). With ``return_cache`` the per-layer caches (KV, or MLA's
+    latent), stacked on a leading unit axis per pattern slot and sized to
+    ``cache_len`` (default S), are returned too: this is the prefill path.
+    aux_loss is the experts' load-balance loss summed over layers in
+    float32 (0 without experts). With gradients enabled and ``remat`` set
+    (and no cache), each unit is rematerialised in the backward
+    (``checkpoint``, non-reentrant): only its input is kept, and the unit's
+    forward, the attention kernel included, runs again. With gradients off
+    ``remat`` changes nothing.
     """
     require_supported(cfg)
     s = tokens.shape[1]
     x = params["embed"][tokens]
+    if patch_embeds is not None and cfg.n_patches:
+        npch = patch_embeds.shape[1]
+        x = torch.cat([patch_embeds.to(x.dtype), x[:, npch:]], dim=1)
     positions = torch.arange(s, device=tokens.device)
     window = cfg.window if window_override is None else window_override
     rematerialise = remat and not return_cache and torch.is_grad_enabled()
-    caches = []
-    for p in _layers(params["units"]["b0"], cfg.n_units):
+    aux, caches = 0.0, []
+    for p in _layers(params["units"], cfg.n_units):
         if rematerialise:
             # the forward draws no random numbers: no RNG state to replay
-            x, c = checkpoint(_unit, cfg, p, x, positions, window,
-                              use_reentrant=False,
-                              preserve_rng_state=False), None
+            x, a = checkpoint(_remat_unit, cfg, p, x, positions, window,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            x, c = _block_apply(cfg, p, x, positions, window=window,
-                                return_cache=return_cache,
-                                cache_len=cache_len)
-        caches.append(c)
+            x, a, c = _unit(cfg, p, x, positions, window,
+                            return_cache=return_cache, cache_len=cache_len)
+            caches.append(c)
+        aux = aux + a
+    rem = {}
+    for r in range(cfg.n_rem_layers):
+        x, a, rem[f"r{r}"] = _block_apply(
+            cfg, _rem_kind(cfg, r), params["rem"][f"r{r}"], x, positions,
+            window=window, return_cache=return_cache, cache_len=cache_len)
+        aux = aux + a
     logits = _logits(cfg, params, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device) + aux
     if not return_cache:
         return logits, aux
-    cache = {"units": {"b0": {
-        k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}}}
+    cache = {"units": _stack_caches(caches)}
+    if rem:
+        cache["rem"] = rem
     return logits, aux, cache
 
 
@@ -162,8 +245,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     """TensorSpec cache tree (:func:`materialize_cache` allocates it)."""
     require_supported(cfg)
     window = cfg.window if window_override is None else window_override
-    return {"units": {"b0": A.gqa_cache_spec(cfg, batch, max_len,
-                                             cfg.n_units, window=window)}}
+    tree: Dict[str, Any] = {"units": {
+        f"b{slot}": _block_cache(cfg, batch, max_len, cfg.n_units, window)
+        for slot in range(len(cfg.pattern))}}
+    if cfg.n_rem_layers:
+        tree["rem"] = {f"r{r}": _block_cache(cfg, batch, max_len, 0, window)
+                       for r in range(cfg.n_rem_layers)}
+    return tree
 
 
 def materialize_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -172,9 +260,12 @@ def materialize_cache(cfg: ArchConfig, batch: int, max_len: int,
     the CUDA card; raises without one)."""
     tree = init_cache(cfg, batch, max_len, window_override)
     device = resolve_device(device)
-    return {"units": {"b0": {
-        k: torch.zeros(ts.shape, dtype=ts.dtype, device=device)
-        for k, ts in tree["units"]["b0"].items()}}}
+
+    def zeros(node):
+        if isinstance(node, dict):
+            return {k: zeros(v) for k, v in node.items()}
+        return torch.zeros(node.shape, dtype=node.dtype, device=device)
+    return zeros(tree)
 
 
 def decode_step(cfg: ArchConfig, params: Dict, cache, tokens, pos: int, *,
@@ -185,12 +276,13 @@ def decode_step(cfg: ArchConfig, params: Dict, cache, tokens, pos: int, *,
     """
     x = params["embed"][tokens]
     window = cfg.window if window_override is None else window_override
-    units, unit_cache = params["units"]["b0"], cache["units"]["b0"]
+    units, unit_cache = params["units"], cache["units"]
     for i in range(cfg.n_units):
-        p = _layer(units, i)
-        h = apply_norm(cfg, p["norm1"], x)
-        out, _ = A.gqa_decode(cfg, p["attn"], h, _layer(unit_cache, i), pos,
-                              window=window)
-        x = x + out
-        x = x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
+        p, c = _layer(units, i), _layer(unit_cache, i)
+        for slot, kind in enumerate(cfg.pattern):
+            x = _block_decode(cfg, kind, p[f"b{slot}"], x, c[f"b{slot}"],
+                              pos, window=window)
+    for r in range(cfg.n_rem_layers):
+        x = _block_decode(cfg, _rem_kind(cfg, r), params["rem"][f"r{r}"], x,
+                          cache["rem"][f"r{r}"], pos, window=window)
     return _logits(cfg, params, x), cache

@@ -214,6 +214,27 @@ def test_swa_bf16_pipeline_matches_plain_and_repeats(dev, s, h, kh, window):
     assert _rel(got, want) <= 1e-2
 
 
+@pytest.mark.parametrize("s,h,kh,d,v_width", [
+    (2048, 40, 40, 96, 64),   # MLA (minicpm3): nope + rope = 96, V 64 padded
+    (300, 40, 40, 96, 64),
+    (2048, 32, 2, 128, 0),    # glm4's 16-way group
+    (300, 32, 2, 128, 0),
+    (300, 40, 8, 128, 0),     # llama4-scout's 5-way group
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_at_the_attention_families_shapes(dev, dtype, s, h, kh, d,
+                                                     v_width):
+    q, k, v = _qkv(dev, 1, s, h, kh, d, dtype, seed=s + h + kh)
+    if v_width:
+        v = torch.nn.functional.pad(v[..., :v_width], (0, d - v_width))
+    got = smod.swa_attention(q, k, v)
+    assert torch.equal(got, smod.swa_attention(q, k, v))
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float())
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+    if v_width:
+        assert not got[..., v_width:].any()
+
+
 def test_swa_kernel_reads_strided_views(dev):
     # q, k, v as slices of one fused projection: strided, not contiguous
     gen = torch.Generator(device=dev)
@@ -459,6 +480,27 @@ def test_reduced_llama_on_the_card_matches_the_cpu(dev):
                           window_override=window)
         ref = TD.generate(cfg, params, tok[:, :40], 8, window_override=window)
         assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b"])
+def test_reduced_attention_families_on_the_card_match_the_cpu(dev, arch):
+    # minicpm3's reduced MLA attends at width 48: the kernel runs padded to 64
+    cfg = TC.reduced(TC.get(arch))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = TT.model_init(cfg, gen, "cpu")
+    params_dev = _to(params, dev)
+    tok = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(2, 100)))
+    n0 = smod.swa_attention.launches
+    got, aux = TT.forward(cfg, params_dev, tok.to(dev))
+    assert smod.swa_attention.launches == n0 + cfg.n_layers
+    want, want_aux = TT.forward(cfg, params, tok)
+    assert _rel(got.cpu(), want) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5 * max(1.0, float(aux))
+    out = TD.generate(cfg, params_dev, tok[:, :40].to(dev), 8)
+    ref = TD.generate(cfg, params, tok[:, :40], 8)
+    assert torch.equal(out.cpu(), ref)
 
 
 def _to(tree, dev):

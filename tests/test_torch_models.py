@@ -49,12 +49,12 @@ def test_configs_match_the_reference():
         assert dataclasses.asdict(make(TC)) == dataclasses.asdict(make(JC))
     assert TC.ARCH_IDS == JC.ARCH_IDS and TC.ALIASES == JC.ALIASES
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TC.get("minicpm3-4b")
+        TC.get("recurrentgemma-2b")
     with pytest.raises(ValueError):
         TC.get("no-such-model")
-    mla = dataclasses.replace(TC.reduced(TC.get(ARCH)), attn_kind="mla")
+    rec = dataclasses.replace(TC.reduced(TC.get(ARCH)), pattern=("rec",))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TT.abstract_params(mla)
+        TT.abstract_params(rec)
 
 
 def test_parameters_carry_across_one_to_one(model):
