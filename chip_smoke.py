@@ -162,6 +162,23 @@ Phases:
      patch embeddings, each model's profiled prefill (busy share, the swa
      kernel's device time); the six reduced configs on the card against
      the CPU.
+ 17. bfloat16 operands of the score, cl_logits and gram kernels: every
+     op through its entry on the card at the reference's conformance
+     shapes, an odd p and a p that is not a multiple of 8 (the Gram's copy
+     widths), p > 128 with phase 7's masks (the pre-pass and both walks)
+     and the field shape; eta and r within one bfloat16 ulp of the plain
+     version on the float32 upcasts rounded once, S (GATE_STATS) and G
+     (GATE_GRAM) against it, all three against the bfloat16 plain version
+     (PRECISION_TOLERANCES["bfloat16"]), bitwise the float32 kernel's on
+     the upcasts (rounded), repeats bitwise, one launch a call; the
+     non-finite cases of tests/test_torch_cuda.py in bfloat16; no upcast
+     copy (torch.cuda.max_memory_allocated around a field call: outputs
+     and scratch only); the field score and cl_logits, the Potts paper
+     score and gram at n = 16384, d = 512 timed against their bounds and
+     one bfloat16 PyTorch call; family_score_stats (the field grid and
+     the paper's Potts graph), score_stats_op, conditional_logits_op and
+     gram_op on bfloat16 tensors with the counts set to 0 just before
+     and read just after, for the kernels line's bfloat16 rows.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -340,6 +357,33 @@ ZOO = (
 )
 #: phase 16's teacher-forced tokens after the prompt
 ZOO_EXTRA = 4
+
+#: phase 17's shapes (n, p): the reference's conformance shapes of the score
+#: and logits kernels, an odd p (single bfloat16 loads in the Gram body) and
+#: a p that is even but not a multiple of 8 (bfloat16 pairs)
+BF16_SHAPES = ((32, 10), (130, 128), (200, 150), (5, 260), (1001, 37),
+               (333, 130))
+#: phase 7's masks past p = 128 (the pre-pass, the sparse and the dense
+#: walk): (mask, n, p)
+BF16_MASKS = (("density .05", 333, 260), ("density 1.0", 333, 260),
+              ("grid 16x16", 333, 256))
+#: the reference's Gram shapes (tests/kernels/test_kernels.py), then a pair
+#: path
+BF16_GRAM = ((100, 7), (512, 128), (1000, 40), (3, 300), (1001, 130))
+#: the non-finite cases of tests/test_torch_cuda.py: (p, mask, poison)
+BF16_NONFINITE = ((257, "density .05", "F and Theta"),
+                  (100, "density .05", "F and Theta"),
+                  (257, "grid 16x16 + isolated node", "F and Theta"),
+                  (257, "density .05", "Theta only"),
+                  (257, "density .05", "F only"),
+                  (1100, "density .05", "a row of F"))
+#: a bfloat16 G against the plain version on the float32 upcasts (float32
+#: sums in another order, as the float32 test of gram)
+GATE_GRAM = 1e-5
+#: the no-upcast check: what a bfloat16 call may allocate above its outputs
+#: and scratch (the caching allocator rounds a large block up to 2 MiB); a
+#: float32 copy of the field F is 256 MiB
+ALLOC_SLACK = 8 * 2**20
 #: the expert models' teacher-forced check in float32 at full width: depth
 #: (float32 weights of all 24 qwen2-moe layers are 60.6 GB; a llama4-scout
 #: layer is 17.5 GB and its vocabulary's embedding and head 8.3 GB), and
@@ -2978,6 +3022,388 @@ def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
     return total
 
 
+def phase17(torch, np, A, smi, gate, plain_cuda_calls, dev, timer, rates,
+            paper_potts, g_field, th_field, X_field):
+    """bfloat16 operands of the score, cl_logits and gram kernels (see the
+    module docstring, item 17). Returns (launches, rows, errs) of the
+    kernels line's bfloat16 rows: the launches of the entry-point drive,
+    the timed rows and the largest absolute errors against the plain
+    versions on the float32 upcasts."""
+    import repro_torch.kernels.cl as TK
+    from repro_torch.kernels.cl import kernel as kmod
+    from repro_torch.kernels.cl.family import (family_kernel_inputs,
+                                               family_score_stats)
+    from repro_torch.kernels.cl.ops import (conditional_logits_op,
+                                            score_stats_op)
+    from repro_torch.kernels.gram import kernel as gmod
+    from repro_torch.kernels.gram.ops import gram_op
+
+    t_phase = time.perf_counter()
+    print(f"phase 17: bfloat16 operands of the score, cl_logits and gram "
+          f"kernels ({smi})", flush=True)
+    bw, flops, bf16_flops = rates
+    bf16 = torch.bfloat16
+    tol16 = TK.precision_tolerance("bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20260226)
+    errs = {"score_c1": 0.0, "score_cn": 0.0, "cl_logits": 0.0, "gram": 0.0}
+
+    def ulps(got, want32):
+        """Largest |got - want32 rounded once| past 1e-6, in bfloat16 ulps
+        of the rounded value (8 significant bits)."""
+        want = want32.to(bf16).float()
+        _, e = torch.frexp(want.abs())
+        ulp = torch.ldexp(torch.ones_like(want), e - 8)
+        d = ((got.float() - want).abs() - 1e-6).clamp_min(0) / ulp
+        return float(d.max()) if d.numel() else 0.0
+
+    def same_or_nan(a, b):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+    def grid_mask(side):
+        p = side * side
+        m = torch.zeros((p, p), device=dev)
+        idx = torch.arange(p, device=dev)
+        right, down = idx[idx % side < side - 1], idx[idx // side < side - 1]
+        m[right, right + 1] = m[right + 1, right] = 1.0
+        m[down, down + side] = m[down + side, down] = 1.0
+        return m
+
+    def case(kind, C, n, p, mask="density .1"):
+        """bfloat16 (F, Theta, A, b) of a kind; Theta scaled by the mean
+        degree so that eta is O(1)."""
+        x = torch.randint(0, C + 1, (n, p), generator=gen, device=dev)
+        if kind == "gaussian":
+            F = torch.randn((1, n, p), generator=gen, device=dev)
+        elif kind == "ising":
+            F = (2.0 * (x > 0).float() - 1.0)[None]
+        else:
+            F = torch.stack([(x == c).float() for c in range(1, C + 1)])
+        if mask == "grid 16x16":
+            Am = grid_mask(16)
+        elif mask == "density 1.0":
+            Am = torch.ones((p, p), device=dev)
+        else:
+            Am = (torch.rand((p, p), generator=gen, device=dev)
+                  < float(mask.split()[1])).float()
+            Am = ((Am + Am.T) > 0).float()
+        deg = max(1.0, float(Am.sum()) / p)
+        th = torch.randn((C, p, p), generator=gen, device=dev) / deg ** 0.5
+        th = (th + th.transpose(1, 2)) / 2
+        bias = 0.1 * torch.randn((C, p), generator=gen, device=dev)
+        return tuple(t.to(bf16).contiguous() for t in (F, th, Am, bias))
+
+    def check_score(tag, kind, args):
+        C = args[0].shape[0]
+        up = tuple(t.float() for t in args)
+        n0 = kmod.cl_score_channels.launches
+        got = kmod.cl_score_channels(*args, kind=kind)
+        one = kmod.cl_score_channels.launches == n0 + 1
+        same = all(torch.equal(a, b) for a, b in
+                   zip(got, kmod.cl_score_channels(*args, kind=kind)))
+        f32 = kmod.cl_score_channels(*up, kind=kind)
+        rounded = (torch.equal(got[0], f32[0].to(bf16))
+                   and torch.equal(got[1], f32[1].to(bf16))
+                   and torch.equal(got[2], f32[2]))
+        del f32
+        want = kmod.cl_score_channels_ref(*up, kind)
+        u = max(ulps(got[0], want[0]), ulps(got[1], want[1]))
+        eS = rel_err(got[2], want[2])
+        key = "score_c1" if C == 1 else "score_cn"
+        errs[key] = max(errs[key], *(abs_err(g, w) for g, w in
+                                     zip(got, want)))
+        del want
+        plain = kmod.cl_score_channels_ref(*args, kind)
+        e16 = max(rel_err(g, w) for g, w in zip(got, plain))
+        del plain
+        types = [t.dtype for t in got] == [bf16, bf16, torch.float32]
+        torch.cuda.synchronize()
+        gate(u <= 1 and eS <= GATE_STATS and e16 <= tol16 and rounded
+             and same and one and types,
+             f"score bf16 {tag}: eta, r within {u:.2f} ulp of the plain "
+             f"version on the upcasts; rel S {eS:.2e}; rel to the bf16 "
+             f"plain version {e16:.2e}; the float32 kernel's rounded "
+             f"{rounded}; repeat bitwise {same}; one launch {one}")
+        return got
+
+    def check_logits(tag, args):
+        up = tuple(t.float() for t in args)
+        n0 = kmod.cl_logits.launches
+        got = kmod.cl_logits(*args)
+        one = kmod.cl_logits.launches == n0 + 1
+        same = torch.equal(got, kmod.cl_logits(*args))
+        rounded = torch.equal(got, kmod.cl_logits(*up).to(bf16))
+        want = kmod.cl_logits_ref(*up)
+        u = ulps(got, want)
+        errs["cl_logits"] = max(errs["cl_logits"], abs_err(got, want))
+        del want
+        e16 = rel_err(got, kmod.cl_logits_ref(*args))
+        torch.cuda.synchronize()
+        gate(u <= 1 and e16 <= tol16 and rounded and same and one
+             and got.dtype == bf16,
+             f"cl_logits bf16 {tag}: within {u:.2f} ulp of the plain "
+             f"version on the upcasts; rel to the bf16 plain version "
+             f"{e16:.2e}; the float32 kernel's rounded {rounded}; repeat "
+             f"bitwise {same}; one launch {one}")
+
+    def check_gram(tag, S):
+        n0 = gmod.gram.launches
+        got = gmod.gram(S)
+        one = gmod.gram.launches == n0 + 1
+        same = torch.equal(got, gmod.gram(S))
+        sym = torch.equal(got, got.T)
+        rounded = torch.equal(got, gmod.gram(S.float()))
+        want = gmod.gram_ref(S.float())
+        e = rel_err(got, want)
+        errs["gram"] = max(errs["gram"], abs_err(got, want))
+        e16 = rel_err(got, gmod.gram_ref(S))
+        torch.cuda.synchronize()
+        gate(e <= GATE_GRAM and e16 <= tol16 and same and sym and rounded
+             and one and got.dtype == torch.float32,
+             f"gram bf16 {tag}: rel {e:.2e} to the plain version on the "
+             f"upcasts, {e16:.2e} to the bf16 one; the float32 kernel's "
+             f"{rounded}; repeat bitwise {same}; symmetric {sym}; one "
+             f"launch {one}")
+
+    for n, p in BF16_SHAPES:
+        for kind, C in (("ising", 1), ("gaussian", 1), ("potts", 2),
+                        ("potts", 3), ("potts", 5)):
+            check_score(f"{kind} C={C} n={n} p={p}", kind,
+                        case(kind, C, n, p))
+        for C in range(1, 6):
+            check_logits(f"C={C} n={n} p={p}",
+                         case("potts" if C > 1 else "gaussian", C, n, p))
+    for mask, n, p in BF16_MASKS:
+        for kind, C in (("ising", 1), ("gaussian", 1), ("potts", 3)):
+            check_score(f"{kind} C={C} n={n} p={p} {mask}", kind,
+                        case(kind, C, n, p, mask))
+        for C in (1, 3, 5):
+            check_logits(f"C={C} n={n} p={p} {mask}",
+                         case("potts" if C > 1 else "gaussian", C, n, p,
+                              mask))
+    for n, d in BF16_GRAM:
+        check_gram(f"n={n} d={d}",
+                   torch.randn((n, d), generator=gen, device=dev).to(bf16))
+    flat = torch.randn((1001 * 128 + 2,), generator=gen,
+                       device=dev).to(bf16)
+    for off in (1, 2):
+        check_gram(f"n=1001 d=128 view at element {off}",
+                   flat[off:off + 1001 * 128].view(1001, 128))
+
+    # the non-finite cases of tests/test_torch_cuda.py, in bfloat16
+    nf_fail = []
+    for p, mask_kind, poison in BF16_NONFINITE:
+        for op in ("ising", "gaussian", "potts", "logits C=1", "logits C=3"):
+            C = {"potts": 2, "logits C=3": 3}.get(op, 1)
+            n = 333
+            x = torch.randint(0, 3, (n, p), generator=gen, device=dev)
+            if op == "potts":
+                F = torch.stack([(x == c).float() for c in range(1, C + 1)])
+            elif op == "ising":
+                F = (2.0 * (x > 0).float() - 1.0)[None]
+            else:
+                F = torch.randn((C, n, p), generator=gen, device=dev)
+            th = 0.2 * torch.randn((C, p, p), generator=gen, device=dev)
+            if mask_kind.startswith("grid"):
+                Am = torch.zeros((p, p), device=dev)
+                Am[:256, :256] = grid_mask(16)
+            else:
+                Am = (torch.rand((p, p), generator=gen, device=dev)
+                      < .05).float()
+            bias = 0.1 * torch.randn((C, p), generator=gen, device=dev)
+            rng = np.random.RandomState(p)
+            if poison == "a row of F":
+                row = F[C - 1, rng.randint(n)]
+                row[:] = float("inf")
+                row[rng.randint(p)] = float("nan")
+            if poison in ("F and Theta", "F only"):
+                for v, j in zip((float("nan"), float("inf"), -float("inf")),
+                                (rng.randint(p), rng.randint(p), p - 1)):
+                    F[rng.randint(C), rng.randint(n), j] = v
+            if poison in ("F and Theta", "Theta only"):
+                zeros = torch.nonzero(Am == 0.0).cpu().numpy()
+                for v, (j, i) in zip(
+                        (float("nan"), float("inf"), -float("inf")),
+                        zeros[rng.choice(len(zeros), 3, replace=False)]):
+                    th[rng.randint(C), j, i] = v
+            bad = tuple(t.to(bf16) for t in (F, th, Am, bias))
+            up = tuple(t.float() for t in bad)
+            if op.startswith("logits"):
+                got, again = (kmod.cl_logits(*bad),), (kmod.cl_logits(*bad),)
+                f32, want = (kmod.cl_logits(*up),), (kmod.cl_logits_ref(*up),)
+            else:
+                got = kmod.cl_score_channels(*bad, kind=op)
+                again = kmod.cl_score_channels(*bad, kind=op)
+                f32 = kmod.cl_score_channels(*up, kind=op)
+                want = kmod.cl_score_channels_ref(*up, op)
+            ok = bool(torch.isnan(got[0]).any())
+            for g, a, f, w in zip(got, again, f32, want):
+                iv = torch.int16 if g.dtype == bf16 else torch.int32
+                ok = (ok and torch.equal(g.view(iv), a.view(iv))
+                      and same_or_nan(g, f.to(g.dtype))
+                      and torch.equal(torch.isnan(g), torch.isnan(w))
+                      and torch.equal(torch.isposinf(g), torch.isposinf(w))
+                      and torch.equal(torch.isneginf(g), torch.isneginf(w)))
+            if not ok:
+                nf_fail.append(f"{op} p={p} {mask_kind} {poison}")
+    gate(not nf_fail, f"non-finite bf16 inputs ({len(BF16_NONFINITE) * 5} "
+         f"cases): NaN and +-inf where the plain version on the upcasts has "
+         f"them, the float32 kernel's outputs rounded, repeats bitwise; "
+         f"failed {nf_fail or 'none'}")
+
+    # the field: family_score_stats's bfloat16 kernel inputs
+    fam = A.Plan(graph=g_field).family_instance
+    Xb = X_field[:16384].to(bf16)
+    thf = th_field.to(dev, torch.float32)
+    ff = family_kernel_inputs(fam, g_field, thf, Xb)
+    gate(all(t.dtype == bf16 for t in ff),
+         f"family_kernel_inputs of a bf16 X: {[str(t.dtype) for t in ff]}")
+    ftag = f"field_ising n={Xb.shape[0]} p={g_field.p}"
+    field = check_score(ftag, "ising", ff)
+    check_logits(ftag, ff)
+    torch.cuda.empty_cache()
+
+    def extra_bytes(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+    C, n, p = ff[0].shape
+    words = kmod._workspace_words(C, p)
+    splits, _ = kmod.score_launch_shape(C, n, p)
+    part = splits * C * C * p * p if splits > 1 else 0
+    want_score = 2 * 2 * C * n * p + 4 * C * C * p * p \
+        + 4 * (C * n * p + part + words)
+    want_logits = 2 * C * n * p + 4 * words
+    es = extra_bytes(lambda: kmod.cl_score_channels(*ff, kind="ising"))
+    el = extra_bytes(lambda: kmod.cl_logits(*ff))
+    mib = 2**20
+    gate(es <= want_score + ALLOC_SLACK and el <= want_logits + ALLOC_SLACK,
+         f"no upcast copy (torch.cuda.max_memory_allocated around the "
+         f"call): the bf16 field score call allocated {es / mib:.1f} MiB "
+         f"for outputs and scratch of {want_score / mib:.1f} MiB, cl_logits "
+         f"{el / mib:.1f} MiB for {want_logits / mib:.1f} MiB; a float32 "
+         f"copy of F would add {4 * C * n * p / mib:.1f} MiB, of Theta "
+         f"{4 * C * p * p / mib:.1f} MiB")
+
+    def bound_at(nbytes, nflop, rate):
+        tb, tf = nbytes / bw * 1e3, nflop / rate * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    rows = {}
+
+    def time_score(tag, kind, args, reps):
+        F, th, mask, bias = args
+        C, n, p = F.shape
+        B = (th * mask[None]).contiguous()
+        _, r, _ = kmod.cl_score_channels_ref(F, th, mask, bias, kind)
+        rT = r.transpose(1, 2).contiguous()
+
+        def library():
+            torch.matmul(F, B)
+            torch.matmul(rT, F)
+        kms, pms, lms = timer.turns(
+            lambda: kmod.cl_score_channels_ref(F, th, mask, bias, kind),
+            lambda: kmod.cl_score_channels(F, th, mask, bias, kind=kind),
+            library, reps)
+        nnz = int(mask.count_nonzero())
+        # bf16 F, Theta, A, b read and eta, r written; S float32; the
+        # Gram's r is float32, so FP32 operations
+        bms, by = bound_at(2 * (C * n * p + C * p * p + p * p + C * p
+                                + 2 * C * n * p) + 4 * C * C * p * p,
+                           2 * C * n * nnz + 2 * C * C * n * p * p, flops)
+        dms = device_ms(torch, lambda: kmod.cl_score_channels(
+            F, th, mask, bias, kind=kind), reps)
+        print(f"  time score bf16 {tag}: kernel {kms:.4f} ms (device "
+              f"{dms:.4f} ms), plain {pms:.4f} ms, 2x bf16 matmul (bf16 "
+              f"out) {lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+        return dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                    bound_by=by)
+
+    rows["score_c1"] = time_score(ftag + " C=1", "ising", ff, 3)
+    F, th, mask, bias = ff
+    B = (th * mask[None]).contiguous()
+    b3 = bias[:, None, :]
+    kms, pms, lms = timer.turns(lambda: kmod.cl_logits_ref(*ff),
+                                lambda: kmod.cl_logits(*ff),
+                                lambda: torch.baddbmm(b3, F, B), 3)
+    nnz = int(mask.count_nonzero())
+    bms, by = bound_at(2 * (2 * C * n * p + p * p + C * p + C * p * p),
+                       2 * C * n * nnz, bf16_flops)
+    dms = device_ms(torch, lambda: kmod.cl_logits(*ff), 3)
+    rows["cl_logits"] = dict(ms=kms, plain_ms=pms, library_ms=lms,
+                             bound_ms=bms, bound_by=by)
+    print(f"  time cl_logits bf16 {ftag}: kernel "
+          f"{kms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms, bf16 "
+          f"baddbmm (bf16 out) {lms:.4f} ms, bound {bms:.4f} ms ({by})",
+          flush=True)
+    del B, b3, F, th, mask, bias
+
+    g_p, fam_p, th_p, X_p = paper_potts
+    pfam = A.Plan(graph=g_p, family=fam_p).family_instance
+    thp = th_p.to(dev, torch.float32)
+    pf = family_kernel_inputs(pfam, g_p, thp, X_p.to(bf16))
+    check_score(f"euclidean_potts3 n={X_p.shape[0]} p={g_p.p} C=2", "potts",
+                pf)
+    rows["score_cn"] = time_score(
+        f"euclidean_potts3 n={X_p.shape[0]} p={g_p.p} C=2", "potts", pf, 50)
+
+    S16 = torch.randn((16384, 512), generator=gen, device=dev).to(bf16)
+    check_gram("kernels_bench n=16384 d=512", S16)
+    n, d = S16.shape
+    G0 = torch.empty((d, d), dtype=bf16, device=dev)
+    kms, pms, lms = timer.turns(
+        lambda: gmod.gram_ref(S16), lambda: gmod.gram(S16),
+        lambda: torch.addmm(G0, S16.T, S16, beta=0.0, alpha=1.0 / n), 20)
+    bms, by = bound_at(2 * n * d + 4 * d * d, n * d * (d + 1), bf16_flops)
+    dms = device_ms(torch, lambda: gmod.gram(S16), 20)
+    rows["gram"] = dict(ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                        bound_by=by)
+    print(f"  time gram bf16 kernels_bench n={n} d={d}: kernel {kms:.4f} ms "
+          f"(device {dms:.4f} ms), plain {pms:.4f} ms, bf16 addmm (bf16 "
+          f"out) {lms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+
+    # the entries on bfloat16 tensors, every count set to 0 just before
+    kmod.cl_score_channels.launches = 0
+    kmod.cl_logits.launches = 0
+    gmod.gram.launches = 0
+    plain_cuda_calls["n"] = 0
+    e1, r1, S1 = family_score_stats(fam, g_field, thf, Xb)
+    c1 = kmod.cl_score_channels.launches
+    e2, r2, S2 = family_score_stats(pfam, g_p, thp, X_p.to(bf16))
+    cn = kmod.cl_score_channels.launches - c1
+    x, th1, m1, b1 = ff[0][0], ff[1][0], ff[2], ff[3][0]
+    e3, r3, S3 = score_stats_op(x, th1, m1, b1, kind="ising")
+    c1 = kmod.cl_score_channels.launches - cn
+    eta = conditional_logits_op(x, th1, m1, b1)
+    G = gram_op(S16)
+    torch.cuda.synchronize()
+    launches = {"score_c1": c1, "score_cn": cn,
+                "cl_logits": kmod.cl_logits.launches,
+                "gram": gmod.gram.launches}
+    pc = plain_cuda_calls["n"]
+    equal = (torch.equal(e1, field[0]) and torch.equal(r1, field[1])
+             and torch.equal(S1, field[2]) and torch.equal(e3, field[0][0])
+             and torch.equal(S3, field[2][0, 0]))
+    types = ([t.dtype for t in (e1, r1, S1, e2, r2, S2, eta, G)]
+             == [bf16, bf16, torch.float32] * 2 + [bf16, torch.float32])
+    finite = all(bool(torch.isfinite(t).all()) for t in (S1, S2, eta, G))
+    gate(launches == {"score_c1": 2, "score_cn": 1, "cl_logits": 1,
+                      "gram": 1} and pc == 0 and equal and types and finite,
+         f"bf16 entries: family_score_stats (field grid, Potts paper graph),"
+         f" score_stats_op, conditional_logits_op, gram_op launched "
+         f"{launches}; plain calls on CUDA tensors {pc}; equal to the direct "
+         f"calls {equal}; output types {types}; finite {finite}")
+    del field, ff, pf, e1, r1, S1, e2, r2, S2, e3, r3, S3, eta, G, S16, G0
+    torch.cuda.empty_cache()
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rows, errs
+
+
 def _tree_to(tree, device):
     return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -3815,6 +4241,10 @@ def main() -> int:
             bf16_flops, bw)
     launches["swa"] += phase16(torch, smi, gate, plain_cuda_calls, dev,
                                PREFILL, check_swa, time_swa)
+    l16, rows16, errs16 = phase17(
+        torch, np, A, smi, gate, plain_cuda_calls, dev, timer,
+        (bw, flops, bf16_flops), paper[2][1:3] + paper[2][4:6], g_field,
+        th_field, X_field)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",
@@ -3851,6 +4281,18 @@ def main() -> int:
              launches=launches["gram"], max_abs_err=errs["gram"],
              **main_rows["gram"]),
     ]
+    # the bfloat16 operands of phase 17: launches of its entry-point drive
+    for key, name, source, replaces in (
+            ("score_c1", "cl_score_channels[C=1, bf16]", "score.cu",
+             "cl/kernel.py:268"),
+            ("score_cn", "cl_score_channels[C>1, bf16]", "score.cu",
+             "cl/kernel.py:296"),
+            ("cl_logits", "cl_logits[bf16]", "score.cu", "cl/kernel.py:114"),
+            ("gram", "gram[bf16]", "gram.cu", "gram/kernel.py:47")):
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/csrc/{source}",
+            replaces=f"src/repro/kernels/{replaces}", launches=l16[key],
+            max_abs_err=errs16[key], **rows16[key]))
     print("redesigned kernels, the first version's time beside this run's "
           "(first versions on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md "
           "kernel table):")

@@ -45,6 +45,26 @@
 // cl_logits is (a), (b) and (d) with the epilogue writing eta only.
 // Plain float32 FMA throughout, not TF32: the float32 parity gates need it.
 //
+// Operand types. F, Theta, A and b are all float32 or all bfloat16 (the
+// template parameter T, the dtype code of the C entries). Every stage reads
+// its operands in T and converts them to float32 where they are read, which
+// is exact, so the sums, the epilogue and the Gram are the float32 ones:
+// a bfloat16 call gives bitwise what a float32 call on the float32 upcasts
+// of its operands gives, with eta and r then rounded once to bfloat16 (as
+// the TPU kernel's epilogue rounds them). The bytes of F, Theta and A read,
+// and of eta and r written, halve. In bfloat16: the pre-pass stores Theta*A
+// in float32 as before; the masked product gathers F with plain loads,
+// since cp.async copies no 2-byte unit, and stores them converted to the
+// float32 shared buffer at once (held in registers across the chunk's
+// products instead, as Theta*A is on a dense tile, the gathers read wrong
+// values for C = 1 and 4 on sparse tiles, for a cause not found); the
+// epilogue also writes the float32
+// r to a workspace rf, which the Gram reads as its r, since the TPU kernel
+// forms S from r before rounding it (and a Gram over the rounded r is off
+// by up to 2^-9 a term); the Gram reads F as bfloat16 (gram_body.cuh). The
+// non-finite stage tests the values after conversion: a bfloat16 inf or
+// NaN is one in float32 too.
+//
 // Non-finite inputs. The reference forms Theta*A first, so where a non-finite
 // Theta[c, j, i] or F[c, s, j] meets a zero of A[j, i] the product is NaN
 // (inf * 0) and so is eta[c, s, i]. A walk over all p rows (FULL, and the
@@ -59,8 +79,11 @@
 // runs near the card's memory rate) and it stays as it was: with finite
 // inputs the last two kernels read the flags and return, and eta, r and S
 // are bitwise what they were without (d).
+#include <stdint.h>
+
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -141,9 +164,10 @@ inline MaskCsc carve(void* work, int C, int p) {
 // warp's bit mask. The scan stores each entry's row j in its value slot; the
 // values Theta[c, j, i] * A[j, i] follow in a second pass shared by all warps,
 // with many loads in flight, so the scan never waits on Theta. Block 0 also
-// clears the non-finite flags.
+// clears the non-finite flags. The values are float32 whatever T is.
+template <typename T>
 __global__ void __launch_bounds__(kPreThreads)
-mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta, int C, int p,
+mask_csc_kernel(const T* __restrict__ mask, const T* __restrict__ theta, int C, int p,
                 MaskCsc ws) {
   constexpr int kWarps = kPreThreads / 32;
   constexpr int kStep = kWarps * kPreRows;
@@ -161,7 +185,7 @@ mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta,
 #pragma unroll
   for (int q = 0; q < kPreRows; ++q) {
     const int j = w * kPreRows + q;
-    m[q] = (col_ok && j < p) ? mask[(size_t)j * p + i] : 0.0f;
+    m[q] = (col_ok && j < p) ? to_f32(mask[(size_t)j * p + i]) : 0.0f;
   }
   for (int j0 = 0; j0 < p; j0 += kStep) {
     const int jw = j0 + w * kPreRows;
@@ -169,7 +193,7 @@ mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta,
 #pragma unroll
     for (int q = 0; q < kPreRows; ++q) {
       const int j = jw + kStep + q;
-      next[q] = (col_ok && j < p) ? mask[(size_t)j * p + i] : 0.0f;
+      next[q] = (col_ok && j < p) ? to_f32(mask[(size_t)j * p + i]) : 0.0f;
     }
     unsigned cbits = 0, ubits = 0;
 #pragma unroll
@@ -220,13 +244,14 @@ mask_csc_kernel(const float* __restrict__ mask, const float* __restrict__ theta,
     }
 #pragma unroll
     for (int q = 0; q < kValBatch; ++q)
-      mk[q] = e0 + q * kWarps < cbase ? mask[(size_t)j[q] * p + i] : 0.0f;
+      mk[q] = e0 + q * kWarps < cbase ? to_f32(mask[(size_t)j[q] * p + i]) : 0.0f;
     for (int c = C - 1; c >= 0; --c) {   // channel 0 last: its slot held the row
 #pragma unroll
       for (int q = 0; q < kValBatch; ++q) {
         const int e = e0 + q * kWarps;
         if (e < cbase)
-          ws.vals[c * pp + (size_t)e * p + i] = theta[c * pp + (size_t)j[q] * p + i] * mk[q];
+          ws.vals[c * pp + (size_t)e * p + i] =
+              to_f32(theta[c * pp + (size_t)j[q] * p + i]) * mk[q];
       }
     }
   }
@@ -248,6 +273,14 @@ __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(
 __device__ __forceinline__ bool nonfinite(float x) {
   return (__float_as_uint(x) & 0x7f800000u) == 0x7f800000u;
 }
+// any of the values of T packed in a 32-bit word (one float32, two bfloat16)
+template <typename T>
+__device__ __forceinline__ bool nonfinite_word(unsigned x) {
+  if constexpr (std::is_same<T, float>::value)
+    return (x & 0x7f800000u) == 0x7f800000u;
+  else
+    return ((x & 0x7f800000u) == 0x7f800000u) | ((x & 0x7f80u) == 0x7f80u);
+}
 
 __device__ __forceinline__ void fma16(float (&acc)[kThreadSamples], const float* f, float v) {
 #pragma unroll
@@ -268,11 +301,17 @@ __device__ __forceinline__ void fma16(float (&acc)[kThreadSamples], const float*
 // so no copy waits on an address, and the tile's bookkeeping, the first union
 // rows and a column's first entries are all read at once on entry. FULL: no
 // pre-pass ran (p <= kFullRows); the union is all p rows and every tile dense.
-template <int KIND, int C, bool FULL>
+// A bfloat16 F takes the same gathers as plain loads, converted and stored
+// to the float32 buffer at once (a chunk's loads are issued together).
+// rf (bfloat16 score kinds only) receives r in float32.
+template <int KIND, int C, bool FULL, typename T>
 __global__ void __launch_bounds__(kMaskThreads)
-masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ theta,
-                     const float* __restrict__ mask, const float* __restrict__ bias,
-                     MaskCsc ws, float* __restrict__ eta, float* __restrict__ r, int n, int p) {
+masked_logits_kernel(const T* __restrict__ F, const T* __restrict__ theta,
+                     const T* __restrict__ mask, const T* __restrict__ bias, MaskCsc ws,
+                     T* __restrict__ eta, T* __restrict__ r, float* __restrict__ rf, int n,
+                     int p) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kTh = kSampleTile / 32;                   // sample groups a thread gathers
   constexpr int kUc = kUnionChunk<C>;
   constexpr int kFPer = kUc / 8;                          // union rows a thread gathers F at
   constexpr int kVPer = kUc * kNodeTile / kMaskThreads;   // Theta*A values a thread stages
@@ -325,20 +364,26 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
   const int chunks = (U + kUc - 1) / kUc;
 
   // F[c, s, urows[u]]: a warp covers 8 rows x 4 samples (32-byte runs of a
-  // row of F where the union is contiguous; 32 distinct banks in Fs)
+  // row of F where the union is contiguous; 32 distinct banks in Fs).
+  // float32: cp.async into Fs[buf]; bfloat16: loads converted into Fs[buf]
   auto stage_f = [&](int k, int buf) {
     const int uc = min(kUc, U - k * kUc);
 #pragma unroll
     for (int q = 0; q < kFPer; ++q) {
       const int uu = q * 8 + (lane >> 2);
 #pragma unroll
-      for (int th = 0; th < kSampleTile / 32; ++th) {
+      for (int th = 0; th < kTh; ++th) {
         const int t = (w + 8 * th) * 4 + (lane & 3);
         const bool ok = uu < uc && s0 + t < n;
         const size_t src = (size_t)(ok ? s0 + t : 0) * p + (ok ? jf[q] : 0);
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          cp_async4(Fs + ((buf * C + c) * kUc + uu) * kRow + t, F + c * np + src, ok);
+        for (int c = 0; c < C; ++c) {
+          float* dst = Fs + ((buf * C + c) * kUc + uu) * kRow + t;
+          if constexpr (kF32)
+            cp_async4(dst, F + c * np + src, ok);
+          else
+            *dst = ok ? to_f32(F[c * np + src]) : 0.0f;
+        }
       }
     }
   };
@@ -349,12 +394,12 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
     for (int q = 0; q < kVPer; ++q) {
       const bool ok = w + 8 * q < uc && i < p;
       const size_t at = ok ? (size_t)jv[q] * p + i : 0;
-      const float mk = ok ? mask[at] : 0.0f;
+      const float mk = ok ? to_f32(mask[at]) : 0.0f;
 #pragma unroll
       // at a zero of A a finite Theta gives +-0, which leaves every sum
       // bitwise as it was; a non-finite one gives the reference's NaN
       for (int c = 0; c < C; ++c) {
-        const float t = ok ? theta[c * pp + at] : 0.0f;
+        const float t = ok ? to_f32(theta[c * pp + at]) : 0.0f;
         vr[c][q] = t * mk;
       }
     }
@@ -428,9 +473,14 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
   cp_async_wait<0>();
 
   if (i >= p) return;
+  // r in the output type and, for bfloat16, unrounded in rf for the Gram
+  auto put_r = [&](size_t at, float v) {
+    r[at] = from_f32<T>(v);
+    if constexpr (!kF32) rf[at] = v;
+  };
   float b[C];
 #pragma unroll
-  for (int c = 0; c < C; ++c) b[c] = bias[c * p + i];
+  for (int c = 0; c < C; ++c) b[c] = to_f32(bias[c * p + i]);
 #pragma unroll
   for (int t = 0; t < kThreadSamples; ++t) {
     const int s = s0 + sw + t;
@@ -440,15 +490,15 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       ev[c] = acc[c][t] + b[c];
-      eta[c * np + off] = ev[c];
+      eta[c * np + off] = from_f32<T>(ev[c]);
     }
     if (KIND == kLogits) continue;
 #pragma unroll
-    for (int c = 0; c < C; ++c) y[c] = F[c * np + off];   // the node's own features
+    for (int c = 0; c < C; ++c) y[c] = to_f32(F[c * np + off]);   // the node's own features
     if (KIND == kIsing) {
-      r[off] = 2.0f * y[0] * sigmoidf(-2.0f * y[0] * ev[0]);
+      put_r(off, 2.0f * y[0] * sigmoidf(-2.0f * y[0] * ev[0]));
     } else if (KIND == kGaussian) {
-      r[off] = y[0] - ev[0];
+      put_r(off, y[0] - ev[0]);
     } else {
       // softmax over [0, eta_0 .. eta_{C-1}]: the reference state's logit is 0
       float m = 0.0f;
@@ -458,7 +508,7 @@ masked_logits_kernel(const float* __restrict__ F, const float* __restrict__ thet
 #pragma unroll
       for (int c = 0; c < C; ++c) den += expf(ev[c] - m);
 #pragma unroll
-      for (int c = 0; c < C; ++c) r[c * np + off] = y[c] - expf(ev[c] - m) / den;
+      for (int c = 0; c < C; ++c) put_r(c * np + off, y[c] - expf(ev[c] - m) / den);
     }
   }
 }
@@ -467,36 +517,39 @@ constexpr int kFixThreads = 256;
 constexpr int kFixBlocks = 4 * 132;   // four per SM of an H100
 constexpr int kFixList = 1024;        // non-finite entries of a row of F held at once
 
-// Sets *flag when any of a[0 .. count) is not finite; float4 loads, four in
+// Sets *flag when any of a[0 .. count) is not finite; 16-byte loads, four in
 // flight a thread, where a is 16-byte aligned.
-__device__ __forceinline__ void flag_nonfinite(const float* __restrict__ a, size_t count,
-                                               int* flag) {
+template <typename T>
+__device__ __forceinline__ void flag_nonfinite(const T* __restrict__ a, size_t count, int* flag) {
+  constexpr int kPer = 16 / sizeof(T);   // values of a 16-byte load
   const size_t tid = blockIdx.x * (size_t)kFixThreads + threadIdx.x;
   const size_t stride = (size_t)gridDim.x * kFixThreads;
   bool bad = false;
   size_t head = 0;
   if (reinterpret_cast<size_t>(a) % 16 == 0) {
-    const float4* a4 = reinterpret_cast<const float4*>(a);
-    const size_t n4 = count / 4;
-    auto nf4 = [](float4 v) {
-      return nonfinite(v.x) | nonfinite(v.y) | nonfinite(v.z) | nonfinite(v.w);
+    const uint4* a4 = reinterpret_cast<const uint4*>(a);
+    const size_t n4 = count / kPer;
+    auto nf4 = [](uint4 v) {
+      return nonfinite_word<T>(v.x) | nonfinite_word<T>(v.y) | nonfinite_word<T>(v.z) |
+             nonfinite_word<T>(v.w);
     };
     size_t k = tid;
     for (; k + 3 * stride < n4; k += 4 * stride) {
-      const float4 v0 = a4[k], v1 = a4[k + stride], v2 = a4[k + 2 * stride],
-                   v3 = a4[k + 3 * stride];
+      const uint4 v0 = a4[k], v1 = a4[k + stride], v2 = a4[k + 2 * stride],
+                  v3 = a4[k + 3 * stride];
       bad |= nf4(v0) | nf4(v1) | nf4(v2) | nf4(v3);
     }
     for (; k < n4; k += stride) bad |= nf4(a4[k]);
-    head = n4 * 4;
+    head = n4 * kPer;
   }
-  for (size_t k = head + tid; k < count; k += stride) bad |= nonfinite(a[k]);
+  for (size_t k = head + tid; k < count; k += stride) bad |= nonfinite(to_f32(a[k]));
   if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
 }
 
 // (d) flags[0] when F holds a non-finite value, flags[1] when Theta does.
+template <typename T>
 __global__ void __launch_bounds__(kFixThreads)
-nonfinite_scan_kernel(const float* __restrict__ F, size_t nf, const float* __restrict__ theta,
+nonfinite_scan_kernel(const T* __restrict__ F, size_t nf, const T* __restrict__ theta,
                       size_t nt, MaskCsc ws) {
   flag_nonfinite(F, nf, ws.flags);
   flag_nonfinite(theta, nt, ws.flags + 1);
@@ -505,8 +558,9 @@ nonfinite_scan_kernel(const float* __restrict__ F, size_t nf, const float* __res
 // (d) When Theta is flagged: colbad[i] gets bit c when some zero of A[:, i]
 // meets a non-finite Theta[c, :, i]. One thread per column, rows in order.
 // Otherwise it returns at once.
+template <typename T>
 __global__ void __launch_bounds__(kFixThreads)
-colbad_kernel(const float* __restrict__ theta, const float* __restrict__ mask, MaskCsc ws, int C,
+colbad_kernel(const T* __restrict__ theta, const T* __restrict__ mask, MaskCsc ws, int C,
               int p) {
   if (!ws.flags[1]) return;
   const int i = blockIdx.x * kFixThreads + threadIdx.x;
@@ -514,9 +568,9 @@ colbad_kernel(const float* __restrict__ theta, const float* __restrict__ mask, M
   const size_t pp = (size_t)p * p;
   int bits = 0;
   for (int j = 0; j < p; ++j) {
-    if (mask[(size_t)j * p + i] != 0.0f) continue;
+    if (to_f32(mask[(size_t)j * p + i]) != 0.0f) continue;
     for (int c = 0; c < C; ++c)
-      if (nonfinite(theta[c * pp + (size_t)j * p + i])) bits |= 1 << c;
+      if (nonfinite(to_f32(theta[c * pp + (size_t)j * p + i]))) bits |= 1 << c;
   }
   ws.colbad[i] = bits;
 }
@@ -526,25 +580,31 @@ colbad_kernel(const float* __restrict__ theta, const float* __restrict__ mask, M
 // residuals there follow (the Potts softmax takes every channel of the
 // node). One row (c, s) of F per block step: its non-finite columns are
 // listed in shared memory, then each thread takes columns i. With no flag
-// set every block returns after reading the flags.
-template <int KIND, int C>
+// set every block returns after reading the flags. rf (bfloat16 score kinds)
+// gets the NaNs of r too, before the Gram reads it.
+template <int KIND, int C, typename T>
 __global__ void __launch_bounds__(kFixThreads)
-nonfinite_fixup_kernel(const float* __restrict__ F, const float* __restrict__ mask, MaskCsc ws,
-                       float* __restrict__ eta, float* __restrict__ r, int n, int p) {
+nonfinite_fixup_kernel(const T* __restrict__ F, const T* __restrict__ mask, MaskCsc ws,
+                       T* __restrict__ eta, T* __restrict__ r, float* __restrict__ rf, int n,
+                       int p) {
   __shared__ int s_list[kFixList];
   __shared__ int s_cnt;
   const bool fbad = ws.flags[0] != 0, tbad = ws.flags[1] != 0;
   if (!fbad && !tbad) return;
   const size_t np = (size_t)n * p;
   const float nan = __int_as_float(0x7fc00000);
+  auto put_r = [&](size_t at) {
+    r[at] = from_f32<T>(nan);
+    if constexpr (!std::is_same<T, float>::value) rf[at] = nan;
+  };
   for (int row = blockIdx.x; row < C * n; row += gridDim.x) {
     const int c = row / n, s = row % n;
-    const float* f = F + c * np + (size_t)s * p;
+    const T* f = F + c * np + (size_t)s * p;
     if (threadIdx.x == 0) s_cnt = 0;
     __syncthreads();
     if (fbad) {
       for (int j = threadIdx.x; j < p; j += kFixThreads) {
-        if (nonfinite(f[j])) {
+        if (nonfinite(to_f32(f[j]))) {
           const int at = atomicAdd(&s_cnt, 1);
           if (at < kFixList) s_list[at] = j;
         }
@@ -555,17 +615,19 @@ nonfinite_fixup_kernel(const float* __restrict__ F, const float* __restrict__ ma
     for (int i = threadIdx.x; i < p; i += kFixThreads) {
       bool bad = tbad && ((ws.colbad[i] >> c) & 1);
       if (cnt <= kFixList) {
-        for (int e = 0; e < cnt && !bad; ++e) bad = mask[(size_t)s_list[e] * p + i] == 0.0f;
+        for (int e = 0; e < cnt && !bad; ++e)
+          bad = to_f32(mask[(size_t)s_list[e] * p + i]) == 0.0f;
       } else {   // more than the list holds: walk the row
-        for (int j = 0; j < p && !bad; ++j) bad = nonfinite(f[j]) && mask[(size_t)j * p + i] == 0.0f;
+        for (int j = 0; j < p && !bad; ++j)
+          bad = nonfinite(to_f32(f[j])) && to_f32(mask[(size_t)j * p + i]) == 0.0f;
       }
       if (!bad) continue;
       const size_t off = (size_t)s * p + i;
-      eta[c * np + off] = nan;
+      eta[c * np + off] = from_f32<T>(nan);
       if (KIND == kPotts) {
-        for (int e = 0; e < C; ++e) r[e * np + off] = nan;
+        for (int e = 0; e < C; ++e) put_r(e * np + off);
       } else if (KIND != kLogits) {
-        r[off] = nan;
+        put_r(off);
       }
     }
     __syncthreads();   // s_cnt and s_list are rewritten for the next row
@@ -573,57 +635,114 @@ nonfinite_fixup_kernel(const float* __restrict__ F, const float* __restrict__ ma
 }
 
 // The pre-pass, then the masked product with its epilogue.
-template <int KIND, int C>
-cudaError_t launch_logits(const float* F, const float* theta, const float* mask,
-                          const float* bias, void* work, float* eta, float* r, int n, int p,
-                          cudaStream_t stream) {
+template <int KIND, int C, typename T>
+cudaError_t launch_logits(const T* F, const T* theta, const T* mask, const T* bias, void* work,
+                          T* eta, T* r, float* rf, int n, int p, cudaStream_t stream) {
   static const cudaError_t attr[2] = {
-      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, false>,
+      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, false, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaskedSmem<C>),
-      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, true>,
+      cudaFuncSetAttribute(masked_logits_kernel<KIND, C, true, T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, kMaskedSmem<C>)};
   const bool full = p <= kFullRows;
   if (attr[full] != cudaSuccess) return attr[full];
   dim3 grid(node_tiles(p), (n + kSampleTile - 1) / kSampleTile);
   if (full) {
-    masked_logits_kernel<KIND, C, true><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
-        F, theta, mask, bias, MaskCsc{}, eta, r, n, p);
+    masked_logits_kernel<KIND, C, true, T><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
+        F, theta, mask, bias, MaskCsc{}, eta, r, rf, n, p);
     return cudaGetLastError();
   }
   const MaskCsc ws = carve(work, C, p);
-  mask_csc_kernel<<<node_tiles(p), kPreThreads, 0, stream>>>(mask, theta, C, p, ws);
+  mask_csc_kernel<T><<<node_tiles(p), kPreThreads, 0, stream>>>(mask, theta, C, p, ws);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  masked_logits_kernel<KIND, C, false><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
-      F, theta, mask, bias, ws, eta, r, n, p);
+  masked_logits_kernel<KIND, C, false, T><<<grid, kMaskThreads, kMaskedSmem<C>, stream>>>(
+      F, theta, mask, bias, ws, eta, r, rf, n, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nonfinite_scan_kernel<<<kFixBlocks, kFixThreads, 0, stream>>>(
+  nonfinite_scan_kernel<T><<<kFixBlocks, kFixThreads, 0, stream>>>(
       F, (size_t)C * n * p, theta, (size_t)C * p * p, ws);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  colbad_kernel<<<(p + kFixThreads - 1) / kFixThreads, kFixThreads, 0, stream>>>(theta, mask,
-                                                                                 ws, C, p);
+  colbad_kernel<T><<<(p + kFixThreads - 1) / kFixThreads, kFixThreads, 0, stream>>>(theta, mask,
+                                                                                    ws, C, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  nonfinite_fixup_kernel<KIND, C><<<std::min(C * n, kFixBlocks), kFixThreads, 0, stream>>>(
-      F, mask, ws, eta, r, n, p);
+  nonfinite_fixup_kernel<KIND, C, T><<<std::min(C * n, kFixBlocks), kFixThreads, 0, stream>>>(
+      F, mask, ws, eta, r, rf, n, p);
   return cudaGetLastError();
 }
 
 // The channel count as a template parameter, C = 1 .. 5.
-template <int KIND>
-cudaError_t launch_channels(int C, const float* F, const float* theta, const float* mask,
-                            const float* bias, void* work, float* eta, float* r, int n, int p,
+template <int KIND, typename T>
+cudaError_t launch_channels(int C, const T* F, const T* theta, const T* mask, const T* bias,
+                            void* work, T* eta, T* r, float* rf, int n, int p,
                             cudaStream_t stream) {
   switch (C) {
-    case 1: return launch_logits<KIND, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
-    case 2: return launch_logits<KIND, 2>(F, theta, mask, bias, work, eta, r, n, p, stream);
-    case 3: return launch_logits<KIND, 3>(F, theta, mask, bias, work, eta, r, n, p, stream);
-    case 4: return launch_logits<KIND, 4>(F, theta, mask, bias, work, eta, r, n, p, stream);
-    case 5: return launch_logits<KIND, 5>(F, theta, mask, bias, work, eta, r, n, p, stream);
+    case 1: return launch_logits<KIND, 1>(F, theta, mask, bias, work, eta, r, rf, n, p, stream);
+    case 2: return launch_logits<KIND, 2>(F, theta, mask, bias, work, eta, r, rf, n, p, stream);
+    case 3: return launch_logits<KIND, 3>(F, theta, mask, bias, work, eta, r, rf, n, p, stream);
+    case 4: return launch_logits<KIND, 4>(F, theta, mask, bias, work, eta, r, rf, n, p, stream);
+    case 5: return launch_logits<KIND, 5>(F, theta, mask, bias, work, eta, r, rf, n, p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The score statistics in operand type T: the masked product with the
+// family's epilogue, then the Gram S = r^T F / n. A float32 call reads r
+// for the Gram and copies both operands width elements at a time; a
+// bfloat16 call reads the float32 rf (16-byte copies where F's are).
+template <typename T>
+cudaError_t launch_score(int kind, int C, const void* F_, const void* theta, const void* mask,
+                         const void* bias, void* work, void* eta, void* r_, float* rf,
+                         float* partial, float* S, int n, int p, int splits, int chunk,
+                         int width, cudaStream_t stream) {
+  const T* F = static_cast<const T*>(F_);
+  const T* th = static_cast<const T*>(theta);
+  const T* A = static_cast<const T*>(mask);
+  const T* b = static_cast<const T*>(bias);
+  T* e = static_cast<T*>(eta);
+  T* r = static_cast<T*>(r_);
+  cudaError_t err;
+  switch (kind) {
+    case kIsing:
+      if (C != 1) return cudaErrorInvalidValue;
+      err = launch_logits<kIsing, 1>(F, th, A, b, work, e, r, rf, n, p, stream);
+      break;
+    case kGaussian:
+      if (C != 1) return cudaErrorInvalidValue;
+      err = launch_logits<kGaussian, 1>(F, th, A, b, work, e, r, rf, n, p, stream);
+      break;
+    case kPotts:
+      err = launch_channels<kPotts>(C, F, th, A, b, work, e, r, rf, n, p, stream);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, float>::value)
+    return launch_gram<false>(r, F, partial, S, C, n, p, splits, chunk, width, width, stream);
+  else
+    return launch_gram<false>(static_cast<const float*>(rf), F, partial, S, C, n, p, splits,
+                              chunk, width == 8 ? 4 : 1, width, stream);
+}
+
+// cl_logits in operand type T: the masked product without an epilogue.
+template <typename T>
+cudaError_t launch_logits_only(int C, const void* F, const void* theta, const void* mask,
+                               const void* bias, void* work, void* eta, int n, int p,
+                               cudaStream_t stream) {
+  return launch_channels<kLogits, T>(C, static_cast<const T*>(F), static_cast<const T*>(theta),
+                                     static_cast<const T*>(mask), static_cast<const T*>(bias),
+                                     work, static_cast<T*>(eta), nullptr, nullptr, n, p,
+                                     stream);
+}
+
+// A copy width of width elements of T fits rows of p elements at base F.
+template <typename T>
+bool width_fits(int width, int p, const void* F) {
+  const bool ok = std::is_same<T, float>::value ? (width == 4 || width == 1)
+                                                : (width == 8 || width == 2 || width == 1);
+  return ok && p % width == 0 && reinterpret_cast<uintptr_t>(F) % (width * sizeof(T)) == 0;
 }
 
 }  // namespace
@@ -640,46 +759,47 @@ int repro_score_max_channels() { return 5; }
 // work may be null.
 size_t repro_masked_workspace_words(int C, int p) { return masked_workspace_words(C, p); }
 
-// kind: 0 ising, 1 gaussian, 2 potts. All tensors float32, contiguous; work
-// holds repro_masked_workspace_words(C, p) words. partial holds
-// splits*C*C*p*p floats when splits > 1 (unused otherwise); chunk is the
-// sample count per split; vec: p % 4 == 0 and F 16-byte aligned (the Gram
-// body's float4 path). Returns a cudaError_t (0 on success).
-int repro_score_channels(int kind, int C, const float* F, const float* theta,
-                         const float* mask, const float* bias, void* work, float* eta,
-                         float* r, float* partial, float* S, int n, int p, int splits,
-                         int chunk, int vec, void* stream_handle) {
+// kind: 0 ising, 1 gaussian, 2 potts. dtype of F, theta, mask, bias, eta and
+// r: 0 float32, 2 bfloat16; all contiguous. rf holds C*n*p floats (the
+// float32 r the Gram reads) for bfloat16 and may be null for float32; S and
+// partial are float32. work holds repro_masked_workspace_words(C, p) words.
+// partial holds splits*C*C*p*p floats when splits > 1 (unused otherwise);
+// chunk is the sample count per split; width: the Gram body's copy width of
+// F in elements (float32 4 or 1, bfloat16 8, 2 or 1; p % width == 0 and F
+// aligned to a copy), and rf and partial 16-byte aligned. Returns a
+// cudaError_t (0 on success).
+int repro_score_channels(int kind, int dtype, int C, const void* F, const void* theta,
+                         const void* mask, const void* bias, void* work, void* eta, void* r,
+                         float* rf, float* partial, float* S, int n, int p, int splits,
+                         int chunk, int width, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   if (n <= 0 || p <= 0 || C <= 0 || splits <= 0 || chunk <= 0) return cudaErrorInvalidValue;
-  cudaError_t err;
-  switch (kind) {
-    case kIsing:
-      if (C != 1) return cudaErrorInvalidValue;
-      err = launch_logits<kIsing, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
-      break;
-    case kGaussian:
-      if (C != 1) return cudaErrorInvalidValue;
-      err = launch_logits<kGaussian, 1>(F, theta, mask, bias, work, eta, r, n, p, stream);
-      break;
-    case kPotts:
-      err = launch_channels<kPotts>(C, F, theta, mask, bias, work, eta, r, n, p, stream);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+  if (dtype == kFloat32) {
+    if (!width_fits<float>(width, p, F)) return cudaErrorInvalidValue;
+    return launch_score<float>(kind, C, F, theta, mask, bias, work, eta, r, nullptr, partial, S,
+                               n, p, splits, chunk, width, stream);
   }
-  if (err != cudaSuccess) return err;
-  return launch_gram<false>(r, F, partial, S, C, n, p, splits, chunk, vec, stream);
+  if (dtype == kBFloat16) {
+    if (!width_fits<__nv_bfloat16>(width, p, F) || rf == nullptr) return cudaErrorInvalidValue;
+    return launch_score<__nv_bfloat16>(kind, C, F, theta, mask, bias, work, eta, r, rf, partial,
+                                       S, n, p, splits, chunk, width, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // eta[c] = F[c] (Theta[c] * A) + b[c] for C = 1 .. repro_score_max_channels();
-// all tensors float32, contiguous; work as for repro_score_channels.
-// Returns a cudaError_t (0 on success).
-int repro_cl_logits(int C, const float* F, const float* theta, const float* mask,
-                    const float* bias, void* work, float* eta, int n, int p,
+// dtype of every tensor: 0 float32, 2 bfloat16; all contiguous; work as for
+// repro_score_channels. Returns a cudaError_t (0 on success).
+int repro_cl_logits(int dtype, int C, const void* F, const void* theta, const void* mask,
+                    const void* bias, void* work, void* eta, int n, int p,
                     void* stream_handle) {
   if (n <= 0 || p <= 0) return cudaErrorInvalidValue;
-  return launch_channels<kLogits>(C, F, theta, mask, bias, work, eta, nullptr, n, p,
-                                  static_cast<cudaStream_t>(stream_handle));
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  if (dtype == kFloat32)
+    return launch_logits_only<float>(C, F, theta, mask, bias, work, eta, n, p, stream);
+  if (dtype == kBFloat16)
+    return launch_logits_only<__nv_bfloat16>(C, F, theta, mask, bias, work, eta, n, p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

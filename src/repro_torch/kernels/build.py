@@ -41,12 +41,13 @@ SIGNATURES = {
     "score": {
         "repro_score_max_channels": ([], _I),
         "repro_masked_workspace_words": ([_I, _I], _L),
-        "repro_score_channels": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                  _I, _I, _I, _I, _I, _P], _I),
-        "repro_cl_logits": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
+        "repro_score_channels": ([_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "repro_cl_logits": ([_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+                            _I),
     },
     "gram": {
-        "repro_gram": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "repro_gram": ([_I, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
     "swa": {
         "repro_swa_supports": ([_I], _I),

@@ -44,8 +44,9 @@ def family_score_stats(family, graph, theta, X, *, use_kernel: bool = True):
     (:func:`repro_torch.kernels.cl.ops.score_stats_channels_op`, which
     records the resolved path in telemetry). Shapes as in
     :func:`repro_torch.kernels.cl.kernel.cl_score_channels`; one score
-    kernel launch on CUDA tensors (float32 only), the plain version on the
-    CPU or with ``use_kernel=False``.
+    kernel launch on CUDA tensors (float32 or bfloat16: a bfloat16 X gives
+    bfloat16 kernel inputs, eta and r, and a float32 S), the plain version on
+    the CPU or with ``use_kernel=False``.
     """
     F, theta_c, mask, bias = family_kernel_inputs(family, graph, theta, X)
     return score_stats_channels_op(F, theta_c, mask, bias,

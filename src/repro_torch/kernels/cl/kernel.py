@@ -2,10 +2,17 @@
 
 One CUDA kernel family for both TPU bodies of ``cl_score_channels`` (the
 single-channel one and the channelized one): the channel count is a template
-parameter of the kernel. The fit path always hands it float32 operands
+parameter of the kernel. :func:`cl_logits` is the same masked product
+without the residual and Gram stages (the TPU's ``cl_logits``).
+
+Both take float32 or bfloat16 operands on CUDA, all four of one type, as
+the TPU kernels do, and hand them to the kernel as they are: it reads them
+in their own type and sums in float32 (no upcast copy, no conversion pass).
+eta and r come back in F's type, rounded once from float32, and S in
+float32; a bfloat16 call gives those of a float32 call on the float32
+upcasts of its operands, rounded. The fit path always hands the score
+kernel float32 operands
 (:func:`repro_torch.kernels.cl.family.fused_pseudo_score` casts them).
-:func:`cl_logits` is the same masked product without the residual and Gram
-stages (the TPU's ``cl_logits``); it takes float32 operands on CUDA.
 
 The masked product follows the nonzeros of the mask: a pre-pass on the card
 lists them by column, and the product walks those lists (or, for a tile of
@@ -64,9 +71,24 @@ def score_launch_shape(C: int, n: int, p: int):
     return split_samples(gram_tile_count(p, False) * C * C, n)
 
 
-def float4_ready(p: int, *tensors) -> bool:
-    """Rows of p floats and 16-byte aligned bases: the float4 copy path."""
-    return p % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+#: operand type codes of the C entries (``Dtype`` in csrc/gram_body.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
+
+
+def copy_width(p: int, *tensors) -> int:
+    """Elements of one copy of the Gram body's operand staging for rows of
+    p elements of the tensors' type: a 16-byte copy where p elements are
+    whole 16-byte units and every base is 16-byte aligned (4 float32, 8
+    bfloat16), else a 4-byte one where they are whole 4-byte units and
+    4-byte aligned (1 float32, a pair of bfloat16), else a single bfloat16
+    (a plain load: cp.async copies no 2-byte unit)."""
+    size = tensors[0].element_size()
+    for nbytes in (16, 4):
+        width = nbytes // size
+        if p % width == 0 and all(t.data_ptr() % nbytes == 0
+                                  for t in tensors):
+            return width
+    return 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,9 +103,10 @@ def _check_operands(name, F, theta, mask, bias):
     """Types, shapes, device and layout the CL kernels take on CUDA."""
     C, n, p = F.shape
     ops = (F, theta, mask, bias)
-    if any(t.dtype != torch.float32 for t in ops):
-        raise TypeError(f"{name} takes float32 operands on CUDA, "
-                        f"got {[str(t.dtype) for t in ops]}")
+    if F.dtype not in DTYPE_CODES or any(t.dtype != F.dtype for t in ops):
+        raise TypeError(f"{name} takes float32 or bfloat16 operands on "
+                        f"CUDA, all four of one type, got "
+                        f"{[str(t.dtype) for t in ops]}")
     if theta.shape != (C, p, p) or mask.shape != (p, p) \
             or bias.shape != (C, p):
         raise ValueError(
@@ -99,10 +122,10 @@ def cl_logits(F, theta, mask, bias):
     """Channelized masked logits ``eta_c = F_c (theta_c * mask) + b_c``.
 
     F: (C, n, p); theta: (C, p, p); mask: (p, p); bias: (C, p). Returns
-    (C, n, p). CUDA operands launch the kernel (one launch counted in
-    ``cl_logits.launches``), must be float32 and have at most
-    ``repro_score_max_channels()`` channels; CPU operands take the plain
-    version.
+    (C, n, p) in F's type. CUDA operands launch the kernel (one launch
+    counted in ``cl_logits.launches``), must be all float32 or all bfloat16
+    and have at most ``repro_score_max_channels()`` channels; CPU operands
+    take the plain version.
     """
     if F.device.type != "cuda":
         return cl_logits_ref(F, theta, mask, bias)
@@ -113,11 +136,12 @@ def cl_logits(F, theta, mask, bias):
         raise ValueError(f"the logits kernel covers at most "
                          f"{lib.repro_score_max_channels()} channels, "
                          f"got C = {C}")
-    eta = torch.empty((C, n, p), dtype=torch.float32, device=F.device)
+    eta = torch.empty((C, n, p), dtype=F.dtype, device=F.device)
     words = _workspace_words(C, p)
     work = (torch.empty(words, dtype=torch.int32, device=F.device)
             if words else None)
-    err = lib.repro_cl_logits(C, F.data_ptr(), theta.data_ptr(),
+    err = lib.repro_cl_logits(DTYPE_CODES[F.dtype], C, F.data_ptr(),
+                              theta.data_ptr(),
                               mask.data_ptr(), bias.data_ptr(),
                               work.data_ptr() if words else None,
                               eta.data_ptr(), n, p,
@@ -142,10 +166,11 @@ def cl_score_channels(F, theta, mask, bias, *, kind: str):
     F: (C, n, p) per-channel design features (for single-channel kinds F[0]
     is the raw sample matrix; for Potts, state indicators); theta: (C, p, p)
     per-channel couplings; mask: (p, p); bias: (C, p). Returns eta, r of
-    shape (C, n, p) and ``S[c, e] = r_c^T F_e / n`` of shape (C, C, p, p),
-    all float32. CUDA operands launch the kernel (one launch counted in
-    ``cl_score_channels.launches``) and must be float32; CPU operands take
-    the plain version.
+    shape (C, n, p) in F's type and ``S[c, e] = r_c^T F_e / n`` of shape
+    (C, C, p, p) in float32, formed from r before it is rounded. CUDA
+    operands launch the kernel (one launch counted in
+    ``cl_score_channels.launches``) and must be all float32 or all bfloat16;
+    CPU operands take the plain version.
     """
     require_epilogue(kind)
     if F.device.type != "cuda":
@@ -159,22 +184,25 @@ def cl_score_channels(F, theta, mask, bias, *, kind: str):
                          f"got C = {C}")
     splits, chunk = score_launch_shape(C, n, p)
     dev = F.device
-    eta = torch.empty((C, n, p), dtype=torch.float32, device=dev)
-    r = torch.empty((C, n, p), dtype=torch.float32, device=dev)
+    eta = torch.empty((C, n, p), dtype=F.dtype, device=dev)
+    r = torch.empty((C, n, p), dtype=F.dtype, device=dev)
     S = torch.empty((C, C, p, p), dtype=torch.float32, device=dev)
-    # one scratch buffer: the Gram partials (when the samples are split),
-    # then the pre-pass's workspace (none for a small p)
+    # one float32 scratch buffer: r before rounding, which the Gram reads
+    # (bfloat16 only), the Gram partials (when the samples are split), then
+    # the pre-pass's workspace (none for a small p)
+    rwords = C * n * p if F.dtype == torch.bfloat16 else 0
     part = splits * C * C * p * p if splits > 1 else 0
-    words = part + _workspace_words(C, p)
+    words = rwords + part + _workspace_words(C, p)
     scratch = torch.empty(words, dtype=torch.float32, device=dev) \
         if words else None
     base = scratch.data_ptr() if words else 0
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.repro_score_channels(
-        KIND_CODES[kind], C, F.data_ptr(), theta.data_ptr(), mask.data_ptr(),
-        bias.data_ptr(), base + 4 * part, eta.data_ptr(), r.data_ptr(),
-        base if part else S.data_ptr(), S.data_ptr(), n, p, splits, chunk,
-        int(float4_ready(p, F)), stream)
+        KIND_CODES[kind], DTYPE_CODES[F.dtype], C, F.data_ptr(),
+        theta.data_ptr(), mask.data_ptr(), bias.data_ptr(),
+        base + 4 * (rwords + part), eta.data_ptr(), r.data_ptr(),
+        base if rwords else None, base + 4 * rwords if part else S.data_ptr(),
+        S.data_ptr(), n, p, splits, chunk, copy_width(p, F), stream)
     check(err, "cl_score_channels kernel")
     cl_score_channels.launches += 1
     return eta, r, S

@@ -2,12 +2,14 @@
 
 ``Plan.precision`` picks the type the sample matrix is cast to before the
 local solves. float64 and float32 run the plain path in that type (the
-solver state follows it). On the card both kernels sum in float32: the
+solver state follows it). On the card every kernel sums in float32: the
 Newton kernel (``csrc/newton.cu``) loads a bfloat16, float32 or float64
-design, reads it as float32 and returns g and K in float32; the score
-kernel (``csrc/score.cu``) takes float32 operands only, so the score pass
-always runs in float32 (the pseudo-score casts to it first, as the
-reference does). bfloat16 trims memory traffic, never the reduction type.
+design, reads it as float32 and returns g and K in float32; the score,
+``cl_logits`` and ``gram`` kernels (``csrc/score.cu``, ``csrc/gram.cu``)
+load bfloat16 or float32 operands and return eta and r in the operands'
+type and S and G in float32. The fit path's score pass still runs in
+float32 (the pseudo-score casts to it first, as the reference does).
+bfloat16 trims memory traffic, never the reduction type.
 
 The table is the documented fused-vs-plain gate each precision must pass
 (max-abs error of the fused statistics against the float32 plain version

@@ -15,7 +15,8 @@ the Gram normalizer is rescaled, from the buffer's capacity to the live
 count.
 
 Every entry point launches exactly one score kernel on CUDA tensors, which
-must be float32 (the kernel's ``TypeError`` otherwise); CPU tensors take
+must be all float32 or all bfloat16 (the kernel's ``TypeError`` otherwise);
+eta and r come back in the input's type and S in float32. CPU tensors take
 the plain version. Tile sizes are not arguments: the kernel's launch shape
 follows fixed rules (``score_launch_shape``).
 """
@@ -35,8 +36,8 @@ def cl_score(x, theta, mask, bias, *, kind: str = "ising"):
 
     x: (n, p); theta, mask: (p, p); bias: (p,). ``kind`` picks the family
     epilogue; multi-channel kinds raise (use :func:`cl_score_channels` or
-    ``family_score_stats``). Returns eta, r of shape (n, p) and
-    ``S = r^T x / n`` of shape (p, p), float32 on CUDA.
+    ``family_score_stats``). Returns eta, r of shape (n, p) in x's type and
+    ``S = r^T x / n`` of shape (p, p) in float32.
     """
     ep = require_epilogue(kind)
     if ep.channels != "single":

@@ -17,6 +17,8 @@ from repro_torch.core import grid_graph, star_graph  # noqa: E402
 from repro_torch.kernels.build import LIBRARIES  # noqa: E402
 from repro_torch.kernels.cl import kernel as kmod  # noqa: E402
 from repro_torch.kernels.cl import newton as nmod  # noqa: E402
+from repro_torch.kernels.cl.precision import \
+    PRECISION_TOLERANCES as TK_PRECISION  # noqa: E402
 from repro_torch.kernels.gram import kernel as gmod  # noqa: E402
 from repro_torch.kernels.swa import kernel as smod  # noqa: E402
 from repro_torch.kernels.swa.ops import swa_op  # noqa: E402
@@ -1059,3 +1061,231 @@ def test_coalesced_dispatch_launches_one_newton_kernel_per_iteration(
     shapes = {s for s, _ in calls}
     assert sum(s[0] for s in shapes) == 4 * g.p
     assert all(w == (kind == "stream") for _, w in calls)
+
+
+# ---- bfloat16 operands of the score, cl_logits and gram kernels ----------
+# The kernels read bfloat16 operands as they are and sum in float32, so a
+# bfloat16 call gives bitwise what the float32 kernel gives on the float32
+# upcasts of its operands, eta and r then rounded once (S and G float32).
+# Against the plain version on the upcasts, rounded once, eta and r lie
+# within one bfloat16 ulp (float32 sums in another order can round to
+# neighbours), S within 1e-4 and G within 1e-5 normwise; against the plain
+# version on the bfloat16 operands within PRECISION_TOLERANCES["bfloat16"]
+# normwise (its cl_logits rounds the bfloat16 product before the bias).
+BF16 = torch.bfloat16
+BF16_SHAPES = [(32, 10), (130, 128), (200, 150), (5, 260), (1001, 37),
+               (333, 130)]
+
+
+def _bf16_ulp(x):
+    """One bfloat16 ulp at each |x| (8 significant bits)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _within_one_ulp(got, want32):
+    """got (bfloat16) within one ulp, plus 1e-6, of want32 rounded once."""
+    want = want32.to(BF16).float()
+    return bool(((got.float() - want).abs() <= _bf16_ulp(want) + 1e-6).all())
+
+
+def _same_or_nan(a, b):
+    """Bitwise equal values, NaN where the other is NaN (bit patterns of a
+    NaN may differ between roundings)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def _bf16_case(dev, kind, C, n, p, mask="sparse"):
+    """bfloat16 (F, Theta, A, b) of a kind, Theta scaled so eta is O(1)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + p + C)
+    x = torch.randint(0, C + 1, (n, p), generator=gen, device=dev)
+    if kind == "gaussian":
+        F = torch.randn((1, n, p), generator=gen, device=dev)
+    elif kind == "ising":
+        F = (2.0 * (x > 0).float() - 1.0)[None]
+    else:
+        F = torch.stack([(x == c).float() for c in range(1, C + 1)])
+    if mask == "grid 16x16":
+        A = _grid_mask(dev, 16)
+    elif mask == "density 1.0":
+        A = torch.ones((p, p), device=dev)
+    else:
+        d = .05 if mask == "density .05" else .1
+        A = (torch.rand((p, p), generator=gen, device=dev) < d).float()
+        A = ((A + A.T) > 0).float()
+    deg = max(1.0, float(A.sum()) / p)
+    th = torch.randn((C, p, p), generator=gen, device=dev) / deg ** 0.5
+    th = ((th + th.transpose(1, 2)) / 2).contiguous()
+    bias = 0.1 * torch.randn((C, p), generator=gen, device=dev)
+    return tuple(t.to(BF16) for t in (F, th, A, bias))
+
+
+def _check_bf16_score(kind, args):
+    up = tuple(t.float() for t in args)
+    n0 = kmod.cl_score_channels.launches
+    got = kmod.cl_score_channels(*args, kind=kind)
+    assert kmod.cl_score_channels.launches == n0 + 1
+    assert [t.dtype for t in got] == [BF16, BF16, torch.float32]
+    again = kmod.cl_score_channels(*args, kind=kind)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    f32 = kmod.cl_score_channels(*up, kind=kind)
+    assert torch.equal(got[0], f32[0].to(BF16))
+    assert torch.equal(got[1], f32[1].to(BF16))
+    assert torch.equal(got[2], f32[2])
+    want = kmod.cl_score_channels_ref(*up, kind)
+    assert _within_one_ulp(got[0], want[0]) and _within_one_ulp(got[1],
+                                                                want[1])
+    assert _rel(got[2], want[2]) <= 1e-4
+    tol = TK_PRECISION["bfloat16"]
+    plain = kmod.cl_score_channels_ref(*args, kind)
+    assert all(_rel(g, w) <= tol for g, w in zip(got, plain))
+
+
+def _check_bf16_logits(args):
+    up = tuple(t.float() for t in args)
+    n0 = kmod.cl_logits.launches
+    got = kmod.cl_logits(*args)
+    assert kmod.cl_logits.launches == n0 + 1
+    assert got.dtype == BF16
+    assert torch.equal(got, kmod.cl_logits(*args))
+    assert torch.equal(got, kmod.cl_logits(*up).to(BF16))
+    assert _within_one_ulp(got, kmod.cl_logits_ref(*up))
+    assert _rel(got, kmod.cl_logits_ref(*args)) <= TK_PRECISION["bfloat16"]
+
+
+@pytest.mark.parametrize("n,p", BF16_SHAPES)
+@pytest.mark.parametrize("kind,C", [("ising", 1), ("gaussian", 1),
+                                    ("potts", 2), ("potts", 3), ("potts", 5)])
+def test_score_kernel_bf16_matches_plain(dev, kind, C, n, p):
+    _check_bf16_score(kind, _bf16_case(dev, kind, C, n, p))
+
+
+@pytest.mark.parametrize("mask", ["density .05", "density 1.0", "grid 16x16"])
+@pytest.mark.parametrize("kind,C", [("ising", 1), ("gaussian", 1),
+                                    ("potts", 3)])
+def test_score_kernel_bf16_masks_match_plain(dev, kind, C, mask):
+    # p > 128: the pre-pass, the sparse and the dense walk
+    p = 256 if mask == "grid 16x16" else 260
+    _check_bf16_score(kind, _bf16_case(dev, kind, C, 333, p, mask))
+
+
+@pytest.mark.parametrize("n,p", BF16_SHAPES)
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5])
+def test_cl_logits_kernel_bf16_matches_plain(dev, C, n, p):
+    _check_bf16_logits(_bf16_case(dev, "potts" if C > 1 else "gaussian", C,
+                                  n, p))
+
+
+@pytest.mark.parametrize("mask", ["density .05", "density 1.0", "grid 16x16"])
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_cl_logits_kernel_bf16_masks_match_plain(dev, C, mask):
+    p = 256 if mask == "grid 16x16" else 260
+    _check_bf16_logits(_bf16_case(dev, "potts" if C > 1 else "gaussian", C,
+                                  333, p, mask))
+
+
+@pytest.mark.parametrize("n,d", [(100, 7), (512, 128), (1000, 40), (3, 300),
+                                 (1001, 130), (16384, 512)])
+def test_gram_kernel_bf16_matches_plain(dev, n, d):
+    # d % 8 == 0 takes 16-byte copies, an even d bfloat16 pairs, an odd d
+    # single loads; G is float32 and bitwise the float32 kernel's on the
+    # upcasts
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(n + d)
+    S = torch.randn((n, d), generator=gen, device=dev).to(BF16)
+    n0 = gmod.gram.launches
+    got = gmod.gram(S)
+    assert gmod.gram.launches == n0 + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, got.T) and torch.equal(got, gmod.gram(S))
+    assert torch.equal(got, gmod.gram(S.float()))
+    assert _rel(got, gmod.gram_ref(S.float())) <= 1e-5
+    assert _rel(got, gmod.gram_ref(S)) <= TK_PRECISION["bfloat16"]
+
+
+def test_gram_kernel_bf16_reads_unaligned_views(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    flat = torch.randn((1001 * 128 + 2,), generator=gen, device=dev).to(BF16)
+    for off in (1, 2):   # 2-byte and 4-byte aligned bases
+        S = flat[off:off + 1001 * 128].view(1001, 128)
+        got = gmod.gram(S)
+        assert torch.equal(got, got.T)
+        assert torch.equal(got, gmod.gram(S.float()))
+
+
+@pytest.mark.parametrize("p,mask_kind,poison", [
+    (257, "density .05", "F and Theta"), (100, "density .05", "F and Theta"),
+    (257, "grid 16x16 + isolated node", "F and Theta"),
+    (257, "density .05", "Theta only"), (257, "density .05", "F only"),
+    (1100, "density .05", "a row of F")])
+@pytest.mark.parametrize("op", ["ising", "gaussian", "potts", "logits C=1",
+                                "logits C=3"])
+def test_nonfinite_bf16_inputs_give_the_plain_nan_positions(dev, op, p,
+                                                           mask_kind, poison):
+    # the non-finite cases of the float32 tests, in bfloat16: NaN and +-inf
+    # where the plain version on the upcasts has them, every output the
+    # float32 kernel's on the upcasts (rounded), a repeat bitwise
+    _, bad = _poisoned_inputs(dev, op, p, mask_kind, poison)
+    bad = tuple(t.to(BF16) for t in bad)
+    up = tuple(t.float() for t in bad)
+    if op.startswith("logits"):
+        got, again = (kmod.cl_logits(*bad),), (kmod.cl_logits(*bad),)
+        f32, want = (kmod.cl_logits(*up),), (kmod.cl_logits_ref(*up),)
+    else:
+        got = kmod.cl_score_channels(*bad, kind=op)
+        again = kmod.cl_score_channels(*bad, kind=op)
+        f32 = kmod.cl_score_channels(*up, kind=op)
+        want = kmod.cl_score_channels_ref(*up, op)
+    assert bool(torch.isnan(got[0]).any())
+    for name, g, a, f, w in zip(("eta", "r", "S"), got, again, f32, want):
+        assert torch.equal(g.view(torch.int16 if g.dtype == BF16
+                                  else torch.int32),
+                           a.view(torch.int16 if a.dtype == BF16
+                                  else torch.int32)), name
+        assert _same_or_nan(g, f.to(g.dtype)), name
+        assert torch.equal(torch.isnan(g), torch.isnan(w)), name
+        assert torch.equal(torch.isposinf(g), torch.isposinf(w)), name
+        assert torch.equal(torch.isneginf(g), torch.isneginf(w)), name
+
+
+@pytest.mark.parametrize("types", ["float64", "float32 F, bf16 rest",
+                                   "bf16 F, float32 Theta"])
+def test_kernels_refuse_float64_and_mixed_operands(dev, types):
+    F, th, A, b = _bf16_case(dev, "ising", 1, 64, 37)
+    args = {"float64": tuple(t.double() for t in (F, th, A, b)),
+            "float32 F, bf16 rest": (F.float(), th, A, b),
+            "bf16 F, float32 Theta": (F, th.float(), A, b)}[types]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kmod.cl_score_channels(*args, kind="ising")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kmod.cl_logits(*args)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gmod.gram(F[0].double() if types == "float64" else F[0].half())
+
+
+def test_bf16_calls_allocate_only_outputs_and_scratch(dev):
+    # no upcast copy of an operand: a bfloat16 call allocates its outputs
+    # and the wrapper's scratch (the float32 r, the pre-pass's workspace)
+    # and nothing else; a float32 copy of F would add 4 * C * n * p bytes
+    C, n, p = 1, 8192, 1024
+    args = _bf16_case(dev, "ising", C, n, p, "density .05")
+    kmod.cl_score_channels(*args, kind="ising")   # builds and loads first
+    words = kmod._workspace_words(C, p)
+    splits, _ = kmod.score_launch_shape(C, n, p)
+    part = splits * C * C * p * p if splits > 1 else 0
+    for call, want in (
+            (lambda: kmod.cl_score_channels(*args, kind="ising"),
+             2 * 2 * C * n * p + 4 * C * C * p * p
+             + 4 * (C * n * p + part + words)),
+            (lambda: kmod.cl_logits(*args), 2 * C * n * p + 4 * words)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra <= want + 8 * 2**20 < want + 4 * C * n * p
+        del out
