@@ -179,6 +179,19 @@ Phases:
      the paper's Potts graph), score_stats_op, conditional_logits_op and
      gram_op on bfloat16 tensors with the counts set to 0 just before
      and read just after, for the kernels line's bfloat16 rows.
+ 18. recurrentgemma-2b at full width and depth (26 layers: eight
+     rec/rec/attn units and two remainder RG-LRU layers; bf16 weights
+     drawn on the card): the swa kernel against its plain version at its
+     two prefill shapes (width 256, 10/1 heads, window 2048), timed beside
+     plain, SDPA with the band mask and the bound; generate at phase 8's
+     shape twice (eight launches a prefill, bitwise equal tokens, no plain
+     attention on a CUDA tensor) and at RG_LONG (an 8192-token prompt:
+     the window bites in the kernel, the ring buffer wraps in decode);
+     prefill seconds, decode ms a step, peak memory, the caches' ring and
+     RG-LRU states; teacher-forced decode against the full forward
+     (GATE_SERVE) at both shapes; a profiled prefill at each (busy share,
+     the RG-LRU scan's share of device time, the swa kernel's device
+     time); the reduced config on the card against the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -390,6 +403,11 @@ ALLOC_SLACK = 8 * 2**20
 #: its gate (float32 sums in another order through a few layers)
 ZOO_F32_LAYERS = {"qwen2-moe-a2.7b": 4, "llama4-scout-17b-a16e": 1}
 GATE_TF32 = 1e-3
+#: phase 18's long request for recurrentgemma-2b (batch, prompt, new
+#: tokens): a prompt four windows long, so the 2048-token window bites in
+#: the prefill kernel and the ring buffer of every attention layer wraps in
+#: decode; phase 8's request is the other
+RG_LONG = (1, 8192, 16)
 
 
 def rel_err(a, b) -> float:
@@ -724,23 +742,25 @@ def planted_structure(torch, np, graph, family, n, gen, device):
     return (z @ chol.T).float().contiguous()
 
 
-def select_profile(torch, label: str, fn, bmod):
+def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
+                   noun: str):
     """One call of ``fn`` under torch.profiler: prints the device's busy
     share and the share of its device time spent in the kernels that
-    ``core/batched.py::_bucket_design`` launched (the bucket design, rebuilt
-    in every prox round; the design builds are marked by a record_function
-    range around the function for this one call), and returns what ``fn``
-    returned."""
+    ``mod.attr`` launched (marked by a record_function range around that
+    function for this one call, and named ``what`` on the line: the bucket
+    design of ``core/batched.py::_bucket_design``, rebuilt in every prox
+    round, or the RG-LRU scan), and returns (what ``fn`` returned, {device
+    kernel name: (us, count)})."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    design = bmod._bucket_design
+    marked, mark = getattr(mod, attr), what.replace(" ", "_")
 
     def traced(*args, **kwargs):
-        with record_function("bucket_design"):
-            return design(*args, **kwargs)
+        with record_function(mark):
+            return marked(*args, **kwargs)
 
-    bmod._bucket_design = traced
+    setattr(mod, attr, traced)
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -750,10 +770,10 @@ def select_profile(torch, label: str, fn, bmod):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        bmod._bucket_design = design
+        setattr(mod, attr, marked)
     events = prof.events()
     device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name != "bucket_design"]
+              and e.name != mark]
     busy_us, end = 0.0, float("-inf")
     for a, b in sorted((e.time_range.start, e.time_range.end)
                        for e in device):
@@ -761,17 +781,16 @@ def select_profile(torch, label: str, fn, bmod):
             busy_us += b - max(a, end)
             end = b
     kernel_us = sum(e.time_range.elapsed_us() for e in device)
-    design_us = sum(e.device_time_total for e in events
-                    if e.name == "bucket_design"
-                    and e.device_type == DeviceType.CPU)
-    builds = sum(1 for e in events if e.name == "bucket_design"
-                 and e.device_type == DeviceType.CPU)
+    marked_us = sum(e.device_time_total for e in events
+                    if e.name == mark and e.device_type == DeviceType.CPU)
+    calls = sum(1 for e in events if e.name == mark
+                and e.device_type == DeviceType.CPU)
     busy = busy_us / 1e6
+    share = 100 * marked_us / max(kernel_us, 1e-9)
     print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / wall:.1f}%, under the profiler); bucket design "
-          f"{design_us / 1e3:.1f} ms over {builds} builds = "
-          f"{100 * design_us / max(kernel_us, 1e-9):.1f}% of {kernel_us / 1e3:.1f}"
-          f" ms of device time", flush=True)
+          f"({100 * busy / wall:.1f}%, under the profiler); {what} "
+          f"{marked_us / 1e3:.1f} ms over {calls} {noun} = {share:.1f}% of "
+          f"{kernel_us / 1e3:.1f} ms of device time", flush=True)
     by_name = {}
     for e in device:
         us, n = by_name.get(e.name, (0.0, 0))
@@ -779,7 +798,7 @@ def select_profile(torch, label: str, fn, bmod):
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:8]:
         print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
-    return out
+    return out, by_name
 
 
 def phase10(torch, np, A, g_field, X_field, smi, gate, launches,
@@ -951,8 +970,10 @@ def phase10(torch, np, A, g_field, X_field, smi, gate, launches,
         # launches takes minutes to read back
         cut = A.StructureSpec(policy="knn", knn_k=8, **FIELD_SELECT_CUTS)
         cuts = ", ".join(f"{k} {v}" for k, v in FIELD_SELECT_CUTS.items())
-        kern = select_profile(torch, f"select field_ising (cuts: {cuts})",
-                              lambda: sess.select(Xb, spec=cut), bmod)
+        kern, _ = marked_profile(
+            torch, f"select field_ising (cuts: {cuts})",
+            lambda: sess.select(Xb, spec=cut), bmod, "_bucket_design",
+            "bucket design", "builds")
         t0 = time.perf_counter()
         plain = sess.select(Xb, spec=cut, use_kernel=False)
         torch.cuda.synchronize()
@@ -2688,6 +2709,83 @@ def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def rel32(a, c):
+    """Normwise relative difference in float32, a batch row at a time (a
+    float32 copy of a 200k-word vocabulary's logits is 6.6 GB)."""
+    num = den = 0.0
+    for x, y in zip(a, c):
+        x, y = x.float(), y.float()
+        num += float((x - y).square().sum())
+        den += float(y.square().sum())
+    return (num / den) ** 0.5
+
+
+@contextlib.contextmanager
+def recording(TM):
+    """``TM.route`` (``repro_torch.models.moe``) with each call's (tokens,
+    Routing) noted in the list yielded (the tensors stay on the card until
+    read)."""
+    plain, routes = TM.route, []
+
+    def noting(cfg, router, xt, n_groups=16):
+        r = plain(cfg, router, xt, n_groups)
+        routes.append((xt.shape[0], r))
+        return r
+    TM.route = noting
+    try:
+        yield routes
+    finally:
+        TM.route = plain
+
+
+def teacher_forced(torch, cfg, params, prompt, cont):
+    """Prefill of ``prompt`` and decode of ``cont`` (teacher-forced)
+    against one forward over both: (rel prefill, [rel decode a step],
+    finite, (top-k choices that differ, choices)). Decode routes dropless
+    (b tokens a step), so the expert models run dropless here (a capacity
+    of at least Tg slots an expert)."""
+    import dataclasses
+
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import moe as TM
+    from repro_torch.models import transformer as TT
+
+    tf = cfg if not cfg.n_experts else dataclasses.replace(
+        cfg, capacity_factor=(cfg.n_experts + 0.5) / cfg.experts_per_tok)
+    b, s = prompt.shape
+    n = cont.shape[1]
+    torch.cuda.empty_cache()
+    with recording(TM) as routes, torch.no_grad():
+        tok = torch.cat([prompt, cont], 1)
+        ref, _ = TT.forward(tf, params, tok)
+        logits, cache = TD.prefill(tf, params, prompt, s + n)
+        e_pre = rel32(logits, ref[:, :s])
+        finite = bool(torch.isfinite(ref).all())
+        del logits
+        e_dec = []
+        for t in range(n):
+            lg, cache = TT.decode_step(tf, params, cache,
+                                       tok[:, s + t:s + t + 1], s + t)
+            e_dec.append(rel32(lg[:, 0], ref[:, s + t]))
+        del ref, cache
+
+    def choices(t):
+        """Each layer's sorted top-k experts of the calls of t tokens."""
+        return torch.stack([r.gate_idx.reshape(t, -1).sort(-1).values
+                            for tt, r in routes if tt == t])
+
+    flips = (0, 0)
+    if cfg.n_experts:
+        dec = choices(b)                                # (n L, b, k)
+        layers = dec.shape[0] // n
+        fwd = choices(b * (s + n))                      # (L, b(s+n), k)
+        fwd = fwd.reshape(layers, b, s + n, -1)[:, :, s:]
+        dec = dec.reshape(n, layers, b, -1)
+        differ = (dec.permute(1, 2, 0, 3) != fwd).any(-1)
+        flips = (int(differ.sum()), differ.numel())
+    return e_pre, e_dec, finite, flips
+
+
 def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
             check_swa, time_swa) -> int:
     """The attention families at full width (ZOO), one model at a time,
@@ -2725,73 +2823,6 @@ def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
     def leaves(tree):
         for v in tree.values():
             yield from (leaves(v) if isinstance(v, dict) else (v,))
-
-    def rel32(a, c):
-        """Normwise relative difference in float32, a batch row at a time
-        (a float32 copy of a 200k-word vocabulary's logits is 6.6 GB)."""
-        num = den = 0.0
-        for x, y in zip(a, c):
-            x, y = x.float(), y.float()
-            num += float((x - y).square().sum())
-            den += float(y.square().sum())
-        return (num / den) ** 0.5
-
-    @contextlib.contextmanager
-    def recording():
-        """TM.route with each call's (tokens, Routing) noted in the list
-        yielded (the tensors stay on the card until read)."""
-        plain, routes = TM.route, []
-
-        def noting(cfg, router, xt, n_groups=16):
-            r = plain(cfg, router, xt, n_groups)
-            routes.append((xt.shape[0], r))
-            return r
-        TM.route = noting
-        try:
-            yield routes
-        finally:
-            TM.route = plain
-
-    def teacher_forced(cfg, params, prompt, cont):
-        """Prefill of ``prompt`` and decode of ``cont`` (teacher-forced)
-        against one forward over both: (rel prefill, [rel decode a step],
-        finite, (top-k choices that differ, choices)). Decode routes
-        dropless (b tokens a step), so the expert models run dropless
-        here (a capacity of at least Tg slots an expert)."""
-        tf = cfg if not cfg.n_experts else dataclasses.replace(
-            cfg, capacity_factor=(cfg.n_experts + 0.5) / cfg.experts_per_tok)
-        b, s = prompt.shape
-        n = cont.shape[1]
-        torch.cuda.empty_cache()
-        with recording() as routes, torch.no_grad():
-            tok = torch.cat([prompt, cont], 1)
-            ref, _ = TT.forward(tf, params, tok)
-            logits, cache = TD.prefill(tf, params, prompt, s + n)
-            e_pre = rel32(logits, ref[:, :s])
-            finite = bool(torch.isfinite(ref).all())
-            del logits
-            e_dec = []
-            for t in range(n):
-                lg, cache = TT.decode_step(tf, params, cache,
-                                           tok[:, s + t:s + t + 1], s + t)
-                e_dec.append(rel32(lg[:, 0], ref[:, s + t]))
-            del ref, cache
-
-        def choices(t):
-            """Each layer's sorted top-k experts of the calls of t tokens."""
-            return torch.stack([r.gate_idx.reshape(t, -1).sort(-1).values
-                                for tt, r in routes if tt == t])
-
-        flips = (0, 0)
-        if cfg.n_experts:
-            dec = choices(b)                                # (n L, b, k)
-            layers = dec.shape[0] // n
-            fwd = choices(b * (s + n))                      # (L, b(s+n), k)
-            fwd = fwd.reshape(layers, b, s + n, -1)[:, :, s:]
-            dec = dec.reshape(n, layers, b, -1)
-            differ = (dec.permute(1, 2, 0, 3) != fwd).any(-1)
-            flips = (int(differ.sum()), differ.numel())
-        return e_pre, e_dec, finite, flips
 
     for i, (arch, depth) in enumerate(ZOO):
         full = TC.get(arch)
@@ -2889,7 +2920,8 @@ def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
               f"({smi})", flush=True)
         gate(finite, f"{arch}: prefill logits finite")
 
-        e_pre, e_dec, finite, flips = teacher_forced(cfg, params, prompt,
+        e_pre, e_dec, finite, flips = teacher_forced(torch, cfg, params,
+                                                     prompt,
                                                      out1[:, :ZOO_EXTRA])
         # a top-k choice that differs (bf16 rounding between the decode and
         # the forward paths, among near-uniform random router
@@ -2909,7 +2941,7 @@ def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
         torch.cuda.empty_cache()
 
         if cfg.n_experts:
-            with recording() as routes:
+            with recording(TM) as routes:
                 logits, cache = TD.prefill(cfg, params, prompt, s_len + 1)
                 TT.decode_step(cfg, params, cache,
                                torch.argmax(logits[:, -1:, :cfg.vocab_size],
@@ -2982,8 +3014,9 @@ def phase16(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
             cfg32 = dataclasses.replace(
                 cfg, n_layers=ZOO_F32_LAYERS[arch], dtype="float32")
             params = TT.model_init(cfg32, gen, device=dev)
-            e_pre, e_dec, finite, flips = teacher_forced(cfg32, params,
-                                                         prompt, cont)
+            e_pre, e_dec, finite, flips = teacher_forced(torch, cfg32,
+                                                         params, prompt,
+                                                         cont)
             gate(finite and max([e_pre] + e_dec) <= GATE_TF32,
                  f"{arch} float32, {cfg32.n_layers} layers: prefill + "
                  f"teacher-forced decode against one forward (both "
@@ -3402,6 +3435,189 @@ def phase17(torch, np, A, smi, gate, plain_cuda_calls, dev, timer, rates,
     torch.cuda.empty_cache()
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, rows, errs
+
+
+def phase18(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
+            check_swa, time_swa) -> int:
+    """recurrentgemma-2b at full width and depth (26 layers: eight
+    rec/rec/attn units and two remainder RG-LRU layers), bf16 weights drawn
+    on the card from a seeded generator: the swa kernel against its plain
+    version at the model's two prefill shapes (width 256, 10/1 heads,
+    window 2048; timed beside the plain version, SDPA with the band mask
+    and the bound); generate at phase 8's shape twice (one launch an
+    attention layer, no plain attention on a CUDA tensor, bitwise equal
+    tokens) and at RG_LONG; prefill seconds, decode ms a step and peak
+    memory at both; prefill and teacher-forced decode against one full
+    forward (GATE_SERVE) at both; the attention caches' ring of 2048
+    slots and the RG-LRU states; a profiled prefill at each shape (the
+    device's busy share, the RG-LRU scan's share of device time, the swa
+    kernel's device time); the reduced config (float32) on the card against
+    the CPU. Returns the swa launches of the main-path runs."""
+    import repro_torch.configs as TC
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import ssm as TS
+    from repro_torch.models import transformer as TT
+
+    t_phase = time.perf_counter()
+    cfg = TC.get("recurrentgemma-2b")
+    arch = cfg.arch_id
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_attn = kinds.count("attn")
+    h, kh, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    print(f"phase 18: {arch} at full width and depth ({cfg.n_layers} "
+          f"layers: {cfg.n_units} units of {'/'.join(cfg.pattern)} and "
+          f"{cfg.n_rem_layers} remainder layers; {kinds.count('rec')} RG-LRU "
+          f"of width {cfg.rglru_width}, {n_attn} local attention with "
+          f"{h}/{kh} heads at width {d} and window {w}; d={cfg.d_model}, "
+          f"{cfg.dtype}) ({smi})", flush=True)
+    requests = (prefill_shape, RG_LONG)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1800)
+    for b, s_len, _ in requests:
+        q = torch.randn((b, s_len, h, d), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        k, v = (torch.randn((b, s_len, kh, d), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        tag = f"{arch} prefill b={b} s={s_len} h/kh={h}/{kh} d={d} w={w}"
+        check_swa(tag, q, k, v, w)
+        time_swa(tag, q, k, v, w, 10 if s_len <= 2048 else 5)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TT.model_init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_items(params)]
+    print(f"  weights: {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+          f"parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.3f} "
+          f"GB, drawn on the card in {time.perf_counter() - t0:.2f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    del leaves
+    prompts = [torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                             device=dev) for b, s_len, _ in requests]
+    TD.generate(cfg, params, prompts[0][:1, :64], 2)    # warm-up
+    torch.cuda.synchronize()
+    total = 0
+
+    def serve(prompt, n_new, label):
+        nonlocal total
+        smod.swa_attention.launches = 0
+        plain_cuda_calls["n"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = TD.generate(cfg, params, prompt, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl, pc = smod.swa_attention.launches, plain_cuda_calls["n"]
+        total += nl
+        gate(nl == n_attn and pc == 0
+             and out.shape == (prompt.shape[0], n_new),
+             f"{arch} {label}: generate {tuple(out.shape)} in {wall:.3f} s "
+             f"({out.numel() / wall:.1f} tokens/s end to end); "
+             f"flash-attention launches {nl} (one prefill of {n_attn} "
+             f"attention layers), plain calls on CUDA tensors {pc}")
+        return out
+
+    def breakdown(prompt, n_new, label):
+        """Prefill seconds and decode ms a step of the same request;
+        returns the cache after the decode steps."""
+        b, s_len = prompt.shape
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TD.prefill(cfg, params, prompt, s_len + n_new)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        last = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+        del logits
+        step = TD.make_serve_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_new - 1):
+            last, _, cache = step(params, cache, last, s_len + t)
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / (n_new - 1)
+        print(f"    {label}: prefill {t_pre:.4f} s ({b * s_len / t_pre:.0f} "
+              f"prompt tokens/s), decode {1e3 * t_dec:.3f} ms per step "
+              f"({b / t_dec:.1f} tokens/s at batch {b}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since "
+              f"the request's first generate ({smi})", flush=True)
+        gate(finite, f"{arch} {label}: prefill logits finite")
+        return cache
+
+    outs = []
+    for (b, s_len, n_new), prompt in zip(requests, prompts):
+        label = f"b={b} prompt={s_len}"
+        torch.cuda.reset_peak_memory_stats()
+        out = serve(prompt, n_new, label)
+        if not outs:
+            again = serve(prompt, n_new, label + ", again")
+            gate(torch.equal(out, again), f"{arch}: greedy decoding gives "
+                 f"identical tokens on a second run")
+            del again
+        outs.append(out)
+        cache = breakdown(prompt, n_new, label)
+        attn = cache["units"][f"b{cfg.pattern.index('attn')}"]["k"]
+        rec = [c for c in cache["units"].values() if "h" in c] \
+            + list(cache.get("rem", {}).values())
+        gate(attn.shape[2] == min(w, s_len + n_new)
+             and all(c["h"].dtype == torch.float32
+                     and c["conv"].shape[-2] == cfg.conv_width - 1
+                     and bool(torch.isfinite(c["h"]).all()) for c in rec),
+             f"{arch} {label}: attention caches hold {attn.shape[2]} "
+             f"positions (window {w}; decode wrote position "
+             f"{s_len + n_new - 2} to slot {(s_len + n_new - 2) % w}); "
+             f"RG-LRU states float32 and finite in {len(rec)} cache "
+             f"groups")
+        del cache
+
+    for (b, s_len, _), prompt, out in zip(requests, prompts, outs):
+        e_pre, e_dec, finite, _ = teacher_forced(torch, cfg, params, prompt,
+                                                 out[:, :ZOO_EXTRA])
+        gate(finite and e_pre <= GATE_SERVE and max(e_dec) <= GATE_SERVE,
+             f"{arch} b={b} prompt={s_len}: prefill + teacher-forced decode "
+             f"against one forward over {s_len + ZOO_EXTRA} tokens: rel "
+             f"prefill {e_pre:.2e}, decode "
+             + ", ".join(f"{e:.2e}" for e in e_dec))
+        torch.cuda.empty_cache()
+
+    for (b, s_len, n_new), prompt in zip(requests, prompts):
+        _, by_name = marked_profile(
+            torch, f"{arch} prefill b={b} prompt={s_len}",
+            lambda: TD.prefill(cfg, params, prompt, s_len + n_new), TS,
+            "linear_scan", "RG-LRU scan", "scans")
+        us, n = map(sum, zip(*[v for name, v in by_name.items()
+                               if "swa_" in name] or [(0.0, 0)]))
+        print(f"    swa device time {us / 1e3 / max(n, 1):.4f} ms a launch "
+              f"({n} launches in the profiled prefill)", flush=True)
+        torch.cuda.empty_cache()
+    del params, prompts, outs
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU (float32) ------
+    red = TC.reduced(cfg)
+    cgen = torch.Generator()
+    cgen.manual_seed(18)
+    on_cpu = TT.model_init(red, cgen, "cpu")
+    on_card = _tree_to(on_cpu, dev)
+    tok = torch.randint(0, red.vocab_size, (2, 100), generator=cgen)
+    smod.swa_attention.launches = 0
+    want, _ = TT.forward(red, on_cpu, tok)
+    got, _ = TT.forward(red, on_card, tok.to(dev))
+    nl = smod.swa_attention.launches
+    e = rel_err(got.cpu(), want)
+    same = torch.equal(TD.generate(red, on_card, tok[:, :80].to(dev), 8).cpu(),
+                       TD.generate(red, on_cpu, tok[:, :80], 8))
+    gate(e <= GATE_STATS and nl == red.n_units and same,
+         f"reduced {arch} (float32) on the card against the CPU: logits rel "
+         f"{e:.2e}, flash-attention launches {nl}, greedy tokens equal "
+         f"{same}")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
 
 
 def _tree_to(tree, device):
@@ -4245,6 +4461,8 @@ def main() -> int:
         torch, np, A, smi, gate, plain_cuda_calls, dev, timer,
         (bw, flops, bf16_flops), paper[2][1:3] + paper[2][4:6], g_field,
         th_field, X_field)
+    launches["swa"] += phase18(torch, smi, gate, plain_cuda_calls, dev,
+                               PREFILL, check_swa, time_swa)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

@@ -37,6 +37,7 @@ PORTED = (
     "chameleon_34b",
     "llama4_scout_17b_a16e",
     "minicpm3_4b",
+    "recurrentgemma_2b",
 )
 
 

@@ -1,8 +1,9 @@
 """Model composition: the block registry for attention blocks (GQA or MLA
 attention with a dense MLP, ``"attn"``; GQA attention with sparse experts,
-``"attn_moe"``), parameters, full-sequence forward (the prefill path), the
+``"attn_moe"``) and the RG-LRU recurrent block with a dense MLP
+(``"rec"``), parameters, full-sequence forward (the prefill path), the
 caches and the one-token decode step. The port of
-``repro.models.transformer`` for those two block kinds.
+``repro.models.transformer`` for those three block kinds.
 
 Layers are grouped into repeating units (the config's ``pattern``); each
 pattern slot ``b{slot}`` has parameters stacked on a leading unit axis, and
@@ -21,13 +22,14 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from . import attention as A
 from . import moe as M
+from . import ssm as S
 from .common import (ArchConfig, apply_norm, init_params, mlp_apply,
                      mlp_spec, norm_spec, spec)
 
 #: what the port does not carry yet, and the ROADMAP.md item that owes it
 _LATER = "ROADMAP.md queue 1, item 16"
 #: the block kinds the port carries
-KINDS = ("attn", "attn_moe")
+KINDS = ("attn", "attn_moe", "rec")
 
 
 def require_supported(cfg: ArchConfig) -> None:
@@ -57,6 +59,10 @@ def _stack(tree, stack: int):
 
 def _block_spec(cfg: ArchConfig, kind: str, stack: int):
     p = {"norm1": norm_spec(cfg, stack), "norm2": norm_spec(cfg, stack)}
+    if kind == "rec":
+        p["rec"] = S.rglru_spec(cfg, stack)
+        p["mlp"] = _stack(mlp_spec(cfg), stack)
+        return p
     if kind == "attn_moe":
         p["attn"] = A.gqa_spec(cfg, stack)
         p["moe"] = M.moe_spec(cfg, stack)
@@ -121,6 +127,14 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
     """Full-sequence block. Returns (x, aux loss, cache|None); the aux
     loss is a float32 scalar tensor for an expert block, else 0.0."""
     h = apply_norm(cfg, p["norm1"], x)
+    if kind == "rec":
+        out = S.rglru_apply(cfg, p["rec"], h, return_cache=return_cache)
+        cache = None
+        if return_cache:
+            out, cache = out
+        x = x + out
+        return (x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)),
+                0.0, cache)
     if cfg.attn_kind == "mla":
         out = A.mla_apply(cfg, p["attn"], h, positions,
                           return_cache=return_cache, cache_len=cache_len)
@@ -140,6 +154,9 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
 
 def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
     h = apply_norm(cfg, p["norm1"], x)
+    if kind == "rec":
+        x = x + S.rglru_decode(cfg, p["rec"], h, cache)[0]
+        return x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
     if cfg.attn_kind == "mla":
         out, cache = A.mla_decode(cfg, p["attn"], h, cache, pos)
     else:
@@ -152,8 +169,10 @@ def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
     return x + mlp_apply(cfg, p["mlp"], h)
 
 
-def _block_cache(cfg: ArchConfig, batch: int, max_len: int, stack: int,
-                 window: int):
+def _block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                 stack: int, window: int):
+    if kind == "rec":
+        return S.rglru_cache_spec(cfg, batch, stack)
     if cfg.attn_kind == "mla":
         return A.mla_cache_spec(cfg, batch, max_len, stack)
     return A.gqa_cache_spec(cfg, batch, max_len, stack, window=window)
@@ -194,9 +213,10 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
 
     tokens: (B, S) int64. ``patch_embeds`` (B, n_patches, d), for a config
     with ``n_patches``, replaces the first n_patches embedding rows (early
-    fusion). With ``return_cache`` the per-layer caches (KV, or MLA's
-    latent), stacked on a leading unit axis per pattern slot and sized to
-    ``cache_len`` (default S), are returned too: this is the prefill path.
+    fusion). With ``return_cache`` the per-layer caches (KV, MLA's
+    latent, or the RG-LRU's state and conv history), stacked on a leading
+    unit axis per pattern slot and sized to ``cache_len`` (default S), are
+    returned too: this is the prefill path.
     aux_loss is the experts' load-balance loss summed over layers in
     float32 (0 without experts). With gradients enabled and ``remat`` set
     (and no cache), each unit is rematerialised in the backward
@@ -246,10 +266,12 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     require_supported(cfg)
     window = cfg.window if window_override is None else window_override
     tree: Dict[str, Any] = {"units": {
-        f"b{slot}": _block_cache(cfg, batch, max_len, cfg.n_units, window)
-        for slot in range(len(cfg.pattern))}}
+        f"b{slot}": _block_cache(cfg, kind, batch, max_len, cfg.n_units,
+                                 window)
+        for slot, kind in enumerate(cfg.pattern)}}
     if cfg.n_rem_layers:
-        tree["rem"] = {f"r{r}": _block_cache(cfg, batch, max_len, 0, window)
+        tree["rem"] = {f"r{r}": _block_cache(cfg, _rem_kind(cfg, r), batch,
+                                             max_len, 0, window)
                        for r in range(cfg.n_rem_layers)}
     return tree
 

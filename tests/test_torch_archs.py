@@ -1,12 +1,13 @@
 """The port's attention families against the JAX package, on the reduced
 configs at float32: sparse experts (qwen2-moe, llama4-scout with patch
-embeddings), latent attention (minicpm3), qk-norm (chameleon) and the dense
-configs (phi3, glm4). The JAX package's ``model_init`` parameters are
-carried across with ``params_from_numpy`` and the same numpy tokens go into
-both. Covers configs, parameters, forward logits and aux, prefill caches
-and decode continuation, greedy tokens, the expert layer's capacity path,
-a mixed block pattern with a remainder layer, and the attention kernel's
-head-width padding."""
+embeddings), latent attention (minicpm3), qk-norm (chameleon), the dense
+configs (phi3, glm4) and the hybrid recurrent stack (recurrentgemma; its
+RG-LRU block alone in tests/test_torch_recurrent.py). The JAX package's
+``model_init`` parameters are carried across with ``params_from_numpy``
+and the same numpy tokens go into both. Covers configs, parameters,
+forward logits and aux, prefill caches and decode continuation, greedy
+tokens, the expert layer's capacity path, a mixed block pattern with a
+remainder layer, and the attention kernel's head-width padding."""
 import dataclasses
 
 import numpy as np
@@ -29,7 +30,7 @@ from repro_torch.models import moe as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 
 ARCHS = ("qwen2-moe-a2.7b", "llama4-scout-17b-a16e", "minicpm3-4b",
-         "chameleon-34b", "phi3-mini-3.8b", "glm4-9b")
+         "chameleon-34b", "phi3-mini-3.8b", "glm4-9b", "recurrentgemma-2b")
 # float32 sums taken in another order through two layers and the vocab
 # projection: logits are O(1), agreement is ~1e-5
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -37,7 +38,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 MOE_TOL = dict(rtol=1e-5, atol=1e-5)
 #: the leaves the reference keeps in float32 whatever the config's type
 F32_LEAVES = {"router", "q_a_norm", "kv_a_norm", "q_norm", "k_norm",
-              "scale"}
+              "scale", "lamb"}
 
 _MODELS = {}
 
@@ -88,8 +89,7 @@ def test_configs_and_reduced_equal_the_reference(arch):
     assert TC.get(arch.replace("-", "_").replace(".", "_")) == TC.get(arch)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-1.3b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-tiny"])
 def test_unported_architectures_still_refuse(arch):
     with pytest.raises(NotImplementedError, match="item 16"):
         TC.get(arch)
@@ -151,7 +151,8 @@ def test_prefill_and_decode_continuation_match(arch):
                               patch_embeds=tpe)
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **TOL)
     np.testing.assert_allclose(tlog.numpy(), full[:, :S].numpy(), **TOL)
-    keys = ("ckv",) if tcfg.attn_kind == "mla" else ("k", "v")
+    keys = ("h", "conv") if tcfg.pattern[0] == "rec" else \
+        ("ckv",) if tcfg.attn_kind == "mla" else ("k", "v")
     assert sorted(tcache["units"]["b0"]) == sorted(keys)
     if tcfg.attn_kind == "mla":
         assert tcache["units"]["b0"]["ckv"].shape == (

@@ -237,6 +237,21 @@ def test_swa_kernel_at_the_attention_families_shapes(dev, dtype, s, h, kh, d,
         assert not got[..., v_width:].any()
 
 
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_at_the_recurrentgemma_shape(dev, dtype, window):
+    # recurrentgemma's local attention: width 256 (the mma.sync kernel in
+    # bf16), 10 query heads on one KV head, a window that bites
+    q, k, v = _qkv(dev, 1, 300, 10, 1, 256, dtype, seed=256 + window)
+    n0 = smod.swa_attention.launches
+    got = smod.swa_attention(q, k, v, window=window)
+    assert smod.swa_attention.launches == n0 + 1
+    assert torch.equal(got, smod.swa_attention(q, k, v, window=window))
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                  window=window)
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
 def test_swa_kernel_reads_strided_views(dev):
     # q, k, v as slices of one fused projection: strided, not contiguous
     gen = torch.Generator(device=dev)
@@ -484,10 +499,15 @@ def test_reduced_llama_on_the_card_matches_the_cpu(dev):
         assert torch.equal(out.cpu(), ref)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b",
+                                  "recurrentgemma-2b"])
 def test_reduced_attention_families_on_the_card_match_the_cpu(dev, arch):
-    # minicpm3's reduced MLA attends at width 48: the kernel runs padded to 64
+    # minicpm3's reduced MLA attends at width 48: the kernel runs padded to
+    # 64; recurrentgemma's attention layers (every third: width 64, 4/1
+    # heads, window 64 < the prompt) launch it, its RG-LRU layers do not
     cfg = TC.reduced(TC.get(arch))
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)] != "rec"
+                 for i in range(cfg.n_layers))
     gen = torch.Generator()
     gen.manual_seed(0)
     params = TT.model_init(cfg, gen, "cpu")
@@ -496,7 +516,7 @@ def test_reduced_attention_families_on_the_card_match_the_cpu(dev, arch):
         0, cfg.vocab_size, size=(2, 100)))
     n0 = smod.swa_attention.launches
     got, aux = TT.forward(cfg, params_dev, tok.to(dev))
-    assert smod.swa_attention.launches == n0 + cfg.n_layers
+    assert smod.swa_attention.launches == n0 + n_attn
     want, want_aux = TT.forward(cfg, params, tok)
     assert _rel(got.cpu(), want) <= 1e-4
     assert abs(float(aux) - float(want_aux)) <= 1e-5 * max(1.0, float(aux))
