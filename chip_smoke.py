@@ -192,6 +192,23 @@ Phases:
      (GATE_SERVE) at both shapes; a profiled prefill at each (busy share,
      the RG-LRU scan's share of device time, the swa kernel's device
      time); the reduced config on the card against the CPU.
+ 19. xlstm-1.3b at full width and depth (48 layers: six units of seven
+     mLSTM and one sLSTM; d 2048, mLSTM width 4096 in 4 heads of 1024;
+     bf16 weights drawn on the card): the mLSTM chunk scan against its
+     chunk-1 recurrence on layer 0's inputs (b = 1, 1024 positions = 4
+     chunks, float32, GATE_SCAN), timed beside its bound; generate at
+     phase 8's shape twice (no swa launch, no plain attention on a CUDA
+     tensor, bitwise equal tokens) and prefill + greedy decode steps at
+     both requests, the long one XL_LONG (an 8192-token prompt, 32 chunks
+     carried); prefill seconds, decode ms a step and peak memory beside
+     the chunk scans', the sLSTM loop's and a decode step's bounds; the
+     (C, n, m) and sLSTM states; prefill and teacher-forced decode against
+     the full forward (the forward padded to a length the chunk divides):
+     reported in bf16, gated in float32 over XL_F32_LAYERS layers
+     (GATE_TF32); a profiled prefill at each request, the long one cut to
+     XL_PROFILED tokens (busy share, the chunk scan's and the sLSTM
+     position loop's shares of device time, no copy to the host); the
+     reduced config on the card against the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -203,6 +220,7 @@ without a result when there is no CUDA device or no repro_torch beside it.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import statistics
@@ -408,6 +426,32 @@ GATE_TF32 = 1e-3
 #: the prefill kernel and the ring buffer of every attention layer wraps in
 #: decode; phase 8's request is the other
 RG_LONG = (1, 8192, 16)
+#: phase 19's long request for xlstm-1.3b (batch, prompt, new tokens): 32
+#: chunks of 256 carried through (C, n, m), 8192 sLSTM steps a layer;
+#: phase 8's request is the other
+XL_LONG = (1, 8192, 16)
+#: phase 19's teacher-forced check, gated in float32 (GATE_TF32) over this
+#: many layers at phase 8's request and at XL_LONG: full depth, and one
+#: unit (7 mLSTM, 1 sLSTM) at the long request, whose float32 prefill and
+#: forward over 8448 tokens would take about 30 s at full depth (the sLSTM
+#: loop). In bf16 the prefill already differs from the forward over a
+#: longer sequence, the same arithmetic at another length, by 0.3
+#: normwise (an H100 80GB HBM3 at 700 W; PERF.md): the GEMMs round
+#: differently at another row count, and each of the 48 layers adds about
+#: 6e-3 to the residual stream's difference and passes it on (float32:
+#: 2.4e-6 a layer, 2.3e-4 after 48)
+XL_F32_LAYERS = (48, 8)
+#: the long request's profiled prefill, cut to this many tokens at b = 1:
+#: its chunk-scan work and sLSTM steps both grow linearly in s, so the
+#: shares stand for the 8192-token request's (16.7 % and 75.6 % there
+#: against 16.9 % and 75.2 % at 2048, PERF.md), and that trace
+#: (4.97 M events) took 153 s to read back
+XL_PROFILED = 1024
+#: the mLSTM chunk scan against its chunk-1 recurrence on the card, float32
+#: (TF32 off), normwise: the same sums in another order through the
+#: normaliser max(|q.n|, exp(-m)) (on the CPU 2e-6 to 5e-5 at width 1024,
+#: growing with the gates' scale)
+GATE_SCAN = 1e-4
 
 
 def rel_err(a, b) -> float:
@@ -743,24 +787,37 @@ def planted_structure(torch, np, graph, family, n, gen, device):
 
 
 def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
-                   noun: str):
+                   noun: str, more=()):
     """One call of ``fn`` under torch.profiler: prints the device's busy
     share and the share of its device time spent in the kernels that
     ``mod.attr`` launched (marked by a record_function range around that
     function for this one call, and named ``what`` on the line: the bucket
     design of ``core/batched.py::_bucket_design``, rebuilt in every prox
-    round, or the RG-LRU scan), and returns (what ``fn`` returned, {device
-    kernel name: (us, count)})."""
+    round, the RG-LRU scan, the mLSTM chunk scan), and the same for each
+    (mod, attr, what, noun) of ``more`` (the sLSTM position loop), and
+    returns (what ``fn`` returned, {device kernel name: (us, count)}).
+
+    It reads the profiler's raw events: a device event counts for a range
+    when the op that launched it (its linked correlation id) started
+    inside one of the range's calls. Building the profiler's event tree
+    (``prof.events()``) costs tens of microseconds an event, minutes for a
+    prefill whose sLSTM loop launches a million kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    marked, mark = getattr(mod, attr), what.replace(" ", "_")
+    marks = [(mod, attr, what, noun)] + list(more)
+    plain = [getattr(m, a) for m, a, _, _ in marks]
+    names = [w.replace(" ", "_") for _, _, w, _ in marks]
 
-    def traced(*args, **kwargs):
-        with record_function(mark):
-            return marked(*args, **kwargs)
+    def traced(marked, mark):
+        def call(*args, **kwargs):
+            with record_function(mark):
+                return marked(*args, **kwargs)
+        return call
 
-    setattr(mod, attr, traced)
+    for (m, a, _, _), marked, mark in zip(marks, plain, names):
+        setattr(m, a, traced(marked, mark))
+    t_all = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -770,31 +827,50 @@ def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        setattr(mod, attr, marked)
-    events = prof.events()
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and e.name != mark]
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end)
-                       for e in device):
+        for (m, a, _, _), marked in zip(marks, plain):
+            setattr(m, a, marked)
+    ranges = {mark: [] for mark in names}
+    op_start, device = {}, []
+    n_events = 0
+    for e in prof.profiler.kineto_results.events():
+        n_events += 1
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in ranges:
+                ranges[name].append((e.start_ns(), e.end_ns()))
+            elif not name.startswith("cu"):      # not a runtime API call
+                op_start[e.correlation_id()] = e.start_ns()
+        elif name not in ranges:
+            device.append((name, e.start_ns(), e.end_ns(),
+                           e.linked_correlation_id()))
+    busy_ns, end, kernel_ns = 0, float("-inf"), 0
+    for _, a, b, _ in sorted(device, key=lambda x: x[1]):
+        kernel_ns += b - a
         if b > end:
-            busy_us += b - max(a, end)
+            busy_ns += b - max(a, end)
             end = b
-    kernel_us = sum(e.time_range.elapsed_us() for e in device)
-    marked_us = sum(e.device_time_total for e in events
-                    if e.name == mark and e.device_type == DeviceType.CPU)
-    calls = sum(1 for e in events if e.name == mark
-                and e.device_type == DeviceType.CPU)
-    busy = busy_us / 1e6
-    share = 100 * marked_us / max(kernel_us, 1e-9)
+    busy = busy_ns / 1e9
+    shares = []
+    for (_, _, w, n), mark in zip(marks, names):
+        spans = sorted(ranges[mark])
+        starts = [lo for lo, _ in spans]
+        marked_ns = 0
+        for _, a, b, link in device:
+            t = op_start.get(link)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                marked_ns += b - a
+        shares.append(f"{w} {marked_ns / 1e6:.1f} ms over {len(spans)} {n} "
+                      f"= {100 * marked_ns / max(kernel_ns, 1):.1f}%")
     print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
-          f"({100 * busy / wall:.1f}%, under the profiler); {what} "
-          f"{marked_us / 1e3:.1f} ms over {calls} {noun} = {share:.1f}% of "
-          f"{kernel_us / 1e3:.1f} ms of device time", flush=True)
+          f"({100 * busy / wall:.1f}%, under the profiler); "
+          f"{'; '.join(shares)} of {kernel_ns / 1e6:.1f} ms of device time "
+          f"({n_events} events; {time.perf_counter() - t_all:.1f} s with the "
+          f"trace's read-back)", flush=True)
     by_name = {}
-    for e in device:
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    for name, a, b, _ in device:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + (b - a) / 1e3, n + 1)
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:8]:
         print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
@@ -2738,12 +2814,15 @@ def recording(TM):
         TM.route = plain
 
 
-def teacher_forced(torch, cfg, params, prompt, cont):
+def teacher_forced(torch, cfg, params, prompt, cont, pad=0):
     """Prefill of ``prompt`` and decode of ``cont`` (teacher-forced)
     against one forward over both: (rel prefill, [rel decode a step],
     finite, (top-k choices that differ, choices)). Decode routes dropless
     (b tokens a step), so the expert models run dropless here (a capacity
-    of at least Tg slots an expert)."""
+    of at least Tg slots an expert). ``pad`` zero tokens are appended to
+    the forward alone (not for the expert models): an xLSTM forward takes
+    only lengths its chunk divides, and the causal forward's logits at the
+    compared positions do not depend on later tokens."""
     import dataclasses
 
     from repro_torch.models import decoding as TD
@@ -2757,7 +2836,8 @@ def teacher_forced(torch, cfg, params, prompt, cont):
     torch.cuda.empty_cache()
     with recording(TM) as routes, torch.no_grad():
         tok = torch.cat([prompt, cont], 1)
-        ref, _ = TT.forward(tf, params, tok)
+        ref, _ = TT.forward(tf, params, torch.cat(
+            [tok, tok.new_zeros((b, pad))], 1))
         logits, cache = TD.prefill(tf, params, prompt, s + n)
         e_pre = rel32(logits, ref[:, :s])
         finite = bool(torch.isfinite(ref).all())
@@ -3620,6 +3700,308 @@ def phase18(torch, smi, gate, plain_cuda_calls, dev, prefill_shape,
     return total
 
 
+def phase19(torch, smi, gate, plain_cuda_calls, dev, prefill_shape, timer,
+            rates) -> None:
+    """xlstm-1.3b at full width and depth (48 layers: six units of seven
+    mLSTM and one sLSTM; d 2048, mLSTM width 4096 in 4 heads of 1024), bf16
+    weights drawn on the card from a seeded generator: the mLSTM chunk scan
+    against its chunk-1 recurrence on one layer's real inputs (b 1, 1024
+    positions = 4 chunks, float32); each request (phase 8's shape and
+    XL_LONG) through prefill and greedy decode steps (prefill seconds,
+    decode ms a step and peak memory beside their bounds; no swa launch, no
+    plain attention on a CUDA tensor), and at phase 8's shape generate
+    twice (bitwise equal tokens, equal to the steps'); the (C, n, m) and
+    sLSTM states; the bf16 prefill and teacher-forced decode against one
+    full forward (reported), and the same in float32 over the first
+    XL_F32_LAYERS layers (GATE_TF32); a profiled prefill at each shape, the
+    long one cut to XL_PROFILED tokens (the device's busy share, the chunk
+    scan's and the sLSTM position loop's shares of device time, no copy to
+    the host); the reduced config (float32) on the card against the
+    CPU."""
+    import dataclasses
+
+    import repro_torch.configs as TC
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import transformer as TT
+    from repro_torch.models import xlstm as TX
+    from repro_torch.models.common import apply_norm
+
+    t_phase = time.perf_counter()
+    bw, flops, _ = rates
+    cfg = TC.get("xlstm-1.3b")
+    arch = cfg.arch_id
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_m, n_s = kinds.count("m"), kinds.count("s")
+    du, nh, hd = TX._mlstm_dims(cfg)
+    L, d = TX.MLSTM_CHUNK, cfg.d_model
+    print(f"phase 19: {arch} at full width and depth ({cfg.n_layers} "
+          f"layers: {cfg.n_units} units of {'/'.join(cfg.pattern)}; {n_m} "
+          f"mLSTM of width {du} in {nh} heads of {hd}, chunk {L}; {n_s} "
+          f"sLSTM of width {d}; {cfg.dtype}) ({smi})", flush=True)
+    requests = (prefill_shape, XL_LONG)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1900)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TT.model_init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_items(params)]
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    print(f"  weights: {sum(t.numel() for t in leaves) / 1e9:.3f} B "
+          f"parameters, {weight_bytes / 1e9:.3f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s (peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    del leaves
+
+    # ---- the chunk scan against its chunk-1 recurrence --------------------
+    # the inputs of the first mLSTM layer's scan over a 1024-token prompt
+    captured, scan = [], TX._mlstm_chunk_scan
+
+    def capture(*args):
+        captured.extend(a.clone() for a in args)
+        return scan(*args)
+
+    p0 = TT._layer(params["units"], 0)["b0"]
+    tok = torch.randint(0, cfg.vocab_size, (1, 4 * L), generator=gen,
+                        device=dev)
+    TX._mlstm_chunk_scan = capture
+    try:
+        with torch.no_grad():
+            TX.mlstm_apply(cfg, p0["mix"], apply_norm(cfg, p0["norm1"],
+                                                      params["embed"][tok]))
+    finally:
+        TX._mlstm_chunk_scan = scan
+    inputs = captured[:5]
+    h, state = scan(*inputs)
+    TX.MLSTM_CHUNK = 1
+    try:
+        t0 = time.perf_counter()
+        h1, state1 = scan(*inputs)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        TX.MLSTM_CHUNK = L
+    errs = [rel_err(a, c) for a, c in zip((h,) + state, (h1,) + state1)]
+    gate(h.dtype == torch.float32 and max(errs) <= GATE_SCAN,
+         f"{arch} mLSTM chunk scan at one layer's inputs (b=1 h={nh} "
+         f"s={4 * L} d={hd}: 4 chunks of {L}, float32, TF32 off) against "
+         f"the chunk-1 recurrence: rel h {errs[0]:.2e}, C {errs[1]:.2e}, n "
+         f"{errs[2]:.2e}, m {errs[3]:.2e} (gate {GATE_SCAN:.0e})")
+
+    def scan_flop(b, s_len):
+        """The chunk scan's products a layer: q k^T and S v within each
+        chunk, q C and k^T v across."""
+        return (s_len // L) * (4 * b * nh * L * L * hd
+                               + 4 * b * nh * L * hd * hd)
+
+    ms = timer(lambda: scan(*inputs), 10)
+    print(f"  time mLSTM chunk scan b=1 s={4 * L}: {ms:.4f} ms (chunk-1 "
+          f"recurrence {step_ms:.1f} ms, one host-timed call); bound "
+          f"{1e3 * scan_flop(1, 4 * L) / flops:.4f} ms "
+          f"({scan_flop(1, 4 * L) / 1e9:.1f} GFLOP at FP32) ({smi})",
+          flush=True)
+    del captured, inputs, h, state, h1, state1, tok
+    torch.cuda.empty_cache()
+
+    prompts = [torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                             device=dev) for b, s_len, _ in requests]
+    TD.generate(cfg, params, prompts[0][:1, :64], 2)    # warm-up
+    torch.cuda.synchronize()
+    r_bytes = d * 4 * d * 2                  # one sLSTM layer's r_gates, bf16
+    embed_bytes = params["embed"].numel() * params["embed"].element_size()
+
+    def bounds(b, s_len):
+        """Prefill's chunk scans and sLSTM loop, and a decode step, at
+        their least times on this card."""
+        fl = n_m * scan_flop(b, s_len)
+        steps = n_s * s_len
+        c_bytes = n_m * b * nh * hd * hd * 4
+        dec = weight_bytes - embed_bytes + 2 * c_bytes
+        print(f"    bounds b={b} s={s_len}: chunk scans {fl / 1e12:.2f} "
+              f"TFLOP FP32 = {fl / flops:.4f} s; sLSTM loop {steps} steps "
+              f"reading r_gates ({r_bytes / 1e6:.1f} MB bf16) once a step = "
+              f"{steps * r_bytes / bw:.4f} s; a decode step reads "
+              f"{(weight_bytes - embed_bytes) / 1e9:.2f} GB of weights and "
+              f"reads and writes {c_bytes / 1e9:.2f} GB of float32 C = "
+              f"{1e3 * dec / bw:.3f} ms ({smi})", flush=True)
+
+    def counts():
+        nl, pc = smod.swa_attention.launches, plain_cuda_calls["n"]
+        smod.swa_attention.launches = 0
+        plain_cuda_calls["n"] = 0
+        return nl, pc
+
+    def serve(prompt, n_new, label):
+        counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = TD.generate(cfg, params, prompt, n_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        nl, pc = counts()
+        gate(nl == 0 and pc == 0 and out.is_cuda
+             and out.shape == (prompt.shape[0], n_new),
+             f"{arch} {label}: generate {tuple(out.shape)} in {wall:.3f} s "
+             f"({out.numel() / wall:.1f} tokens/s end to end; {smi}); "
+             f"flash-attention launches {nl}, plain attention calls on CUDA "
+             f"tensors {pc}, tokens on {out.device}")
+        return out
+
+    def breakdown(prompt, n_new, label):
+        """The request through prefill and greedy decode steps, as
+        generate runs them: prefill seconds and decode ms a step; returns
+        (tokens, prefill logits, the first ZOO_EXTRA steps' logits, the
+        cache after the steps)."""
+        b, s_len = prompt.shape
+        counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = TD.prefill(cfg, params, prompt, s_len + n_new)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        out = [torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]]
+        steps = []
+        step = TD.make_serve_step(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(n_new - 1):
+            nxt, lg, cache = step(params, cache, out[-1], s_len + t)
+            out.append(nxt)
+            if len(steps) < ZOO_EXTRA:
+                steps.append(lg[:, 0])
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t0) / (n_new - 1)
+        nl, pc = counts()
+        out = torch.cat(out, 1)
+        print(f"    {label}: prefill {t_pre:.4f} s ({b * s_len / t_pre:.0f} "
+              f"prompt tokens/s), decode {1e3 * t_dec:.3f} ms per step "
+              f"({b / t_dec:.1f} tokens/s at batch {b}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since "
+              f"the request's first prefill ({smi})", flush=True)
+        gate(finite and nl == 0 and pc == 0 and out.is_cuda,
+             f"{arch} {label}: prefill logits finite; prefill and "
+             f"{n_new - 1} decode steps launched swa {nl} times, plain "
+             f"attention on CUDA tensors {pc} times; tokens on {out.device}")
+        return out, logits, steps, cache
+
+    def forward_at(cfg_, params_, tok):
+        """The full forward over ``tok`` padded with zero tokens to a
+        length the chunk divides (the logits at tok's positions do not
+        depend on them)."""
+        pad = -tok.shape[1] % L
+        with torch.no_grad():
+            return TT.forward(cfg_, params_, torch.cat(
+                [tok, tok.new_zeros((tok.shape[0], pad))], 1))[0]
+
+    outs = []
+    for (b, s_len, n_new), prompt in zip(requests, prompts):
+        label = f"b={b} prompt={s_len}"
+        torch.cuda.reset_peak_memory_stats()
+        out, logits, steps, cache = breakdown(prompt, n_new, label)
+        bounds(b, s_len)
+        if not outs:
+            # the user's entry point, twice, against the breakdown's tokens
+            first = serve(prompt, n_new, label)
+            again = serve(prompt, n_new, label + ", again")
+            gate(torch.equal(first, again) and torch.equal(first, out),
+                 f"{arch}: greedy decoding gives identical tokens on a second"
+                 f" run and through prefill + make_serve_step")
+            del first, again
+        outs.append(out)
+        groups = cache["units"]
+        m_ok = all(groups[f"b{i}"][key].dtype == torch.float32
+                   and groups[f"b{i}"][key].is_cuda
+                   and bool(torch.isfinite(groups[f"b{i}"][key]).all())
+                   for i, kind in enumerate(cfg.pattern)
+                   for key in (("C", "n", "m") if kind == "m" else "cnmh"))
+        C = groups["b0"]["C"]
+        c_gb = C.numel() * 4 * (n_m // cfg.n_units) / 1e9
+        gate(m_ok and C.shape == (cfg.n_units, b, nh, hd, hd)
+             and groups["b0"]["conv"].shape[-2] == cfg.conv_width - 1,
+             f"{arch} {label}: mLSTM (C, n, m) and sLSTM (c, n, m, h) "
+             f"states float32, finite and on the card; C {tuple(C.shape)} "
+             f"({c_gb:.2f} GB over the {n_m} mLSTM layers)")
+        del cache, C, groups
+        # bf16 prefill and teacher-forced decode against one forward:
+        # reported, gated in float32 (see XL_F32_LAYERS)
+        tok = torch.cat([prompt, out[:, :ZOO_EXTRA]], 1)
+        ref = forward_at(cfg, params, tok)
+        e_pre = rel32(logits, ref[:, :s_len])
+        e_dec = [rel32(lg, ref[:, s_len + t]) for t, lg in enumerate(steps)]
+        gate(bool(torch.isfinite(ref).all()),
+             f"{arch} {label}: forward over {ref.shape[1]} tokens finite; "
+             f"bf16 prefill against it rel {e_pre:.2e}, teacher-forced "
+             f"decode " + ", ".join(f"{e:.2e}" for e in e_dec)
+             + " (reported, not gated)")
+        del logits, steps, ref, tok
+        torch.cuda.empty_cache()
+
+    # ---- float32 teacher-forced decode over XL_F32_LAYERS layers ---------
+    for (b, s_len, _), prompt, out, layers in zip(requests, prompts, outs,
+                                                   XL_F32_LAYERS):
+        units = layers // len(cfg.pattern)
+        c32 = dataclasses.replace(cfg, dtype="float32", n_layers=layers)
+        p32 = _tree_to({k: v for k, v in params.items() if k != "units"},
+                       torch.float32)
+        p32["units"] = _tree_to(
+            {slot: {g: {k: v[:units] for k, v in leaves.items()}
+                    for g, leaves in group.items()}
+             for slot, group in params["units"].items()}, torch.float32)
+        pad = -(s_len + ZOO_EXTRA) % L
+        e_pre, e_dec, finite, _ = teacher_forced(
+            torch, c32, p32, prompt, out[:, :ZOO_EXTRA], pad=pad)
+        gate(finite and max([e_pre] + e_dec) <= GATE_TF32,
+             f"{arch} float32, {layers} layers, b={b} prompt={s_len}: "
+             f"prefill + teacher-forced decode against one forward over "
+             f"{s_len + ZOO_EXTRA + pad} tokens: rel prefill {e_pre:.2e}, "
+             f"decode " + ", ".join(f"{e:.2e}" for e in e_dec)
+             + f" (gate {GATE_TF32:.0e})")
+        del p32
+        torch.cuda.empty_cache()
+
+    # the long request's profile at XL_PROFILED tokens (b = 1)
+    for (b, s_len, n_new), prompt in zip(requests, prompts):
+        if b == 1:
+            s_len, prompt = XL_PROFILED, prompt[:, :XL_PROFILED]
+        _, by_name = marked_profile(
+            torch, f"{arch} prefill b={b} prompt={s_len}",
+            lambda: TD.prefill(cfg, params, prompt, s_len + n_new), TX,
+            "_mlstm_chunk_scan", "mLSTM chunk scan", "scans",
+            more=((TX, "_slstm_scan", "sLSTM position loop", "loops"),))
+        to_host = sum(n for name, (_, n) in by_name.items()
+                      if "DtoH" in name)
+        swa = sum(n for name, (_, n) in by_name.items() if "swa_" in name)
+        gate(to_host == 0 and swa == 0,
+             f"{arch} profiled prefill b={b} prompt={s_len}: copies to the "
+             f"host {to_host}, swa kernels {swa} ({smi})")
+        torch.cuda.empty_cache()
+    del params, prompts, outs
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU (float32) ------
+    red = TC.reduced(cfg)
+    cgen = torch.Generator()
+    cgen.manual_seed(19)
+    on_cpu = TT.model_init(red, cgen, "cpu")
+    on_card = _tree_to(on_cpu, dev)
+    tok = torch.randint(0, red.vocab_size, (2, 100), generator=cgen)
+    smod.swa_attention.launches = 0
+    want, _ = TT.forward(red, on_cpu, tok)
+    got, _ = TT.forward(red, on_card, tok.to(dev))
+    nl = smod.swa_attention.launches
+    e = rel_err(got.cpu(), want)
+    same = torch.equal(TD.generate(red, on_card, tok[:, :80].to(dev), 8).cpu(),
+                       TD.generate(red, on_cpu, tok[:, :80], 8))
+    gate(e <= GATE_STATS and nl == 0 and same,
+         f"reduced {arch} (float32) on the card against the CPU: logits rel "
+         f"{e:.2e}, flash-attention launches {nl}, greedy tokens equal "
+         f"{same}")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def _tree_to(tree, device):
     return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -4463,6 +4845,8 @@ def main() -> int:
         th_field, X_field)
     launches["swa"] += phase18(torch, smi, gate, plain_cuda_calls, dev,
                                PREFILL, check_swa, time_swa)
+    phase19(torch, smi, gate, plain_cuda_calls, dev, PREFILL, timer,
+            (bw, flops, bf16_flops))
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

@@ -2,8 +2,8 @@
 ``reduced(cfg)`` -> a CPU-sized variant of the same family.
 
 ``ARCH_IDS`` and ``ALIASES`` list every architecture of the reference; only
-those whose blocks the port carries have a config here, and ``get`` of any
-other raises ``NotImplementedError``.
+those whose blocks the port carries have a config here, and ``get`` of the
+one other, whisper-tiny, raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ PORTED = (
     "llama4_scout_17b_a16e",
     "minicpm3_4b",
     "recurrentgemma_2b",
+    "xlstm_1_3b",
 )
 
 
@@ -48,8 +49,8 @@ def get(arch_id: str) -> ArchConfig:
                          f"{', '.join(ARCH_IDS)}")
     if mod_name not in PORTED:
         raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queue 1, item 16); "
-            f"ported: {', '.join(PORTED)}")
+            f"{arch_id} is not ported yet (ROADMAP.md queue 1, item 16: "
+            f"whisper-tiny is the one left); ported: {', '.join(PORTED)}")
     return importlib.import_module(f"{__name__}.{mod_name}").CONFIG
 
 

@@ -1,4 +1,4 @@
 """The transformer substrate of the port: decoders of attention blocks,
-dense or with sparse experts, GQA or latent attention, and of RG-LRU
-recurrent blocks (common pieces, attention, experts, the RG-LRU,
-composition, decoding)."""
+dense or with sparse experts, GQA or latent attention, of RG-LRU
+recurrent blocks and of xLSTM blocks (common pieces, attention, experts,
+the RG-LRU, the mLSTM and sLSTM, composition, decoding)."""

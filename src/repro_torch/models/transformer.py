@@ -1,9 +1,10 @@
 """Model composition: the block registry for attention blocks (GQA or MLA
 attention with a dense MLP, ``"attn"``; GQA attention with sparse experts,
-``"attn_moe"``) and the RG-LRU recurrent block with a dense MLP
-(``"rec"``), parameters, full-sequence forward (the prefill path), the
-caches and the one-token decode step. The port of
-``repro.models.transformer`` for those three block kinds.
+``"attn_moe"``), the RG-LRU recurrent block with a dense MLP (``"rec"``)
+and the xLSTM blocks, mLSTM (``"m"``) and sLSTM (``"s"``), each a
+pre-norm residual with no MLP of its own; parameters, full-sequence
+forward (the prefill path), the caches and the one-token decode step. The
+port of ``repro.models.transformer`` for those five block kinds.
 
 Layers are grouped into repeating units (the config's ``pattern``); each
 pattern slot ``b{slot}`` has parameters stacked on a leading unit axis, and
@@ -23,13 +24,16 @@ from ..device import resolve_device
 from . import attention as A
 from . import moe as M
 from . import ssm as S
+from . import xlstm as X
 from .common import (ArchConfig, apply_norm, init_params, mlp_apply,
                      mlp_spec, norm_spec, spec)
 
-#: what the port does not carry yet, and the ROADMAP.md item that owes it
+#: what the port does not carry yet (whisper's encoder-decoder, its
+#: cross-attention and learned positions), and the ROADMAP.md item that
+#: owes it
 _LATER = "ROADMAP.md queue 1, item 16"
 #: the block kinds the port carries
-KINDS = ("attn", "attn_moe", "rec")
+KINDS = ("attn", "attn_moe", "rec", "m", "s")
 
 
 def require_supported(cfg: ArchConfig) -> None:
@@ -58,6 +62,13 @@ def _stack(tree, stack: int):
 
 
 def _block_spec(cfg: ArchConfig, kind: str, stack: int):
+    # the xLSTM blocks carry their own projections: no norm2, no MLP
+    if kind == "m":
+        return {"norm1": norm_spec(cfg, stack),
+                "mix": X.mlstm_spec(cfg, stack)}
+    if kind == "s":
+        return {"norm1": norm_spec(cfg, stack),
+                "mix": X.slstm_spec(cfg, stack)}
     p = {"norm1": norm_spec(cfg, stack), "norm2": norm_spec(cfg, stack)}
     if kind == "rec":
         p["rec"] = S.rglru_spec(cfg, stack)
@@ -127,6 +138,11 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
     """Full-sequence block. Returns (x, aux loss, cache|None); the aux
     loss is a float32 scalar tensor for an expert block, else 0.0."""
     h = apply_norm(cfg, p["norm1"], x)
+    if kind in ("m", "s"):
+        mix = X.mlstm_apply if kind == "m" else X.slstm_apply
+        out = mix(cfg, p["mix"], h, return_cache=return_cache)
+        out, cache = out if return_cache else (out, None)
+        return x + out, 0.0, cache
     if kind == "rec":
         out = S.rglru_apply(cfg, p["rec"], h, return_cache=return_cache)
         cache = None
@@ -154,6 +170,9 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
 
 def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
     h = apply_norm(cfg, p["norm1"], x)
+    if kind in ("m", "s"):
+        mix = X.mlstm_decode if kind == "m" else X.slstm_decode
+        return x + mix(cfg, p["mix"], h, cache)[0]
     if kind == "rec":
         x = x + S.rglru_decode(cfg, p["rec"], h, cache)[0]
         return x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x))
@@ -171,6 +190,10 @@ def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
 
 def _block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
                  stack: int, window: int):
+    if kind == "m":
+        return X.mlstm_cache_spec(cfg, batch, stack)
+    if kind == "s":
+        return X.slstm_cache_spec(cfg, batch, stack)
     if kind == "rec":
         return S.rglru_cache_spec(cfg, batch, stack)
     if cfg.attn_kind == "mla":
@@ -214,7 +237,8 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
     tokens: (B, S) int64. ``patch_embeds`` (B, n_patches, d), for a config
     with ``n_patches``, replaces the first n_patches embedding rows (early
     fusion). With ``return_cache`` the per-layer caches (KV, MLA's
-    latent, or the RG-LRU's state and conv history), stacked on a leading
+    latent, the RG-LRU's state and conv history, the mLSTM's (C, n, m)
+    and conv history, or the sLSTM's (c, n, m, h)), stacked on a leading
     unit axis per pattern slot and sized to ``cache_len`` (default S), are
     returned too: this is the prefill path.
     aux_loss is the experts' load-balance loss summed over layers in

@@ -525,6 +525,56 @@ def test_reduced_attention_families_on_the_card_match_the_cpu(dev, arch):
     assert torch.equal(out.cpu(), ref)
 
 
+@pytest.mark.parametrize("b,s,tol", [(2, 100, 1e-4), (1, 512, 3e-4)])
+def test_reduced_xlstm_on_the_card_matches_the_cpu(dev, b, s, tol):
+    # one chunk and two chunks of 256; no layer launches the swa kernel.
+    # The long case holds tests/test_torch_xlstm.py's long-stack tolerance:
+    # float32 recurrences over 16 layers, a chunk of 256 and 512 sLSTM steps
+    cfg = TC.reduced(TC.get("xlstm-1.3b"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = TT.model_init(cfg, gen, "cpu")
+    params_dev = _to(params, dev)
+    tok = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(b, s)))
+    n0 = smod.swa_attention.launches
+    got, _ = TT.forward(cfg, params_dev, tok.to(dev))
+    assert smod.swa_attention.launches == n0
+    want, _ = TT.forward(cfg, params, tok)
+    assert _rel(got.cpu(), want) <= tol
+    _, cache_dev = TD.prefill(cfg, params_dev, tok.to(dev), s + 4)
+    _, cache = TD.prefill(cfg, params, tok, s + 4)
+    for slot, leaves in cache["units"].items():
+        for key, t in leaves.items():
+            assert cache_dev["units"][slot][key].dtype == t.dtype
+            assert _rel(cache_dev["units"][slot][key].cpu(), t) <= tol
+    out = TD.generate(cfg, params_dev, tok[:, :40].to(dev), 8)
+    ref = TD.generate(cfg, params, tok[:, :40], 8)
+    assert torch.equal(out.cpu(), ref)
+
+
+def test_mlstm_chunk_scan_on_the_card_matches_the_recurrence(dev,
+                                                             monkeypatch):
+    # xlstm-1.3b's head width 1024 and 4 heads, two chunks of 256, against
+    # the chunk-1 recurrence (float32; TF32 off): normwise, sums in another
+    # order through the exponential gating's normaliser
+    from repro_torch.models import xlstm as TX
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1024)
+    q, k, v = (torch.randn((1, 4, 512, 1024), generator=gen, device=dev)
+               for _ in range(3))
+    li = torch.randn((1, 4, 512), generator=gen, device=dev)
+    lf = torch.nn.functional.logsigmoid(
+        torch.randn((1, 4, 512), generator=gen, device=dev) + 1.0)
+    h, state = TX._mlstm_chunk_scan(q, k, v, li, lf)
+    monkeypatch.setattr(TX, "MLSTM_CHUNK", 1)
+    h1, state1 = TX._mlstm_chunk_scan(q, k, v, li, lf)
+    assert h.dtype == torch.float32 and h.shape == q.shape
+    assert _rel(h, h1) <= 1e-4
+    for a, b in zip(state, state1):
+        assert _rel(a, b) <= 1e-4
+
+
 def _to(tree, dev):
     return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
             for k, v in tree.items()}
