@@ -209,6 +209,26 @@ Phases:
      XL_PROFILED tokens (busy share, the chunk scan's and the sLSTM
      position loop's shares of device time, no copy to the host); the
      reduced config on the card against the CPU.
+ 20. whisper-tiny at full width and depth (4 encoder and 4 decoder layers,
+     d 384, 6 heads of 64, 1500 frames, vocab 51865 padded to 52096; bf16
+     weights and frame embeddings drawn on the card): the swa kernel
+     against its plain version at both prefill shapes (width 64, 6/6
+     heads, no window; bf16 and float32), timed beside plain, SDPA and the
+     bound at the 224-token prompt; generate at WH_REQUEST (b = 8, a
+     224-token prompt, 224 new tokens) twice and at WH_FIRST (a 4-token
+     prompt): bitwise equal tokens, one swa launch a decoder layer in the
+     prefill and none in a decode step, no causal plain attention on a
+     CUDA tensor, the non-causal plain calls (the encoder's and the
+     cross-attention's materialised scores) counted; encode ms, prefill
+     seconds, decode ms a step and peak memory beside their bounds;
+     prefill and teacher-forced decode against one forward, bf16
+     (GATE_SERVE) and float32 at full depth (GATE_TF32); a profiled
+     prefill at each request (busy share, the encoder's and the non-causal
+     attention's shares of device time, the swa kernel's device time), a
+     profiled encoder and profiled decode steps (the cross-attention's
+     share); the encoder and a cross-attention layer at full
+     width in float32 on the card against the CPU; the reduced config on
+     the card against the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -453,6 +473,15 @@ XL_PROFILED = 1024
 #: growing with the gates' scale)
 GATE_SCAN = 1e-4
 
+#: phase 20's requests for whisper-tiny (batch, frames, prompt, new tokens)
+#: over one 30-second window's 1500 frame embeddings: whisper's 448-token
+#: decoder context, 224 tokens of previous-text conditioning and
+#: sample_len 224; and the first segment of a file, a 4-token
+#: start-of-transcript prompt
+WH_REQUEST = (8, 1500, 224, 224)
+WH_FIRST = (8, 1500, 4, 224)
+#: decode steps of phase 20's profiled decode
+WH_PROFILED_STEPS = 16
 
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
@@ -2814,7 +2843,25 @@ def recording(TM):
         TM.route = plain
 
 
-def teacher_forced(torch, cfg, params, prompt, cont, pad=0):
+@contextlib.contextmanager
+def counting_calls(mod, attr: str):
+    """``mod.attr`` counting its calls on CUDA tensors in the dict yielded
+    (key ``"n"``); restored after."""
+    plain, calls = getattr(mod, attr), {"n": 0}
+
+    def counted(*args, **kwargs):
+        if any(getattr(a, "is_cuda", False) for a in args):
+            calls["n"] += 1
+        return plain(*args, **kwargs)
+    setattr(mod, attr, counted)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, plain)
+
+
+def teacher_forced(torch, cfg, params, prompt, cont, pad=0,
+                   enc_frames=None):
     """Prefill of ``prompt`` and decode of ``cont`` (teacher-forced)
     against one forward over both: (rel prefill, [rel decode a step],
     finite, (top-k choices that differ, choices)). Decode routes dropless
@@ -2822,7 +2869,9 @@ def teacher_forced(torch, cfg, params, prompt, cont, pad=0):
     of at least Tg slots an expert). ``pad`` zero tokens are appended to
     the forward alone (not for the expert models): an xLSTM forward takes
     only lengths its chunk divides, and the causal forward's logits at the
-    compared positions do not depend on later tokens."""
+    compared positions do not depend on later tokens. An encoder-decoder
+    takes ``enc_frames``: the forward and the prefill encode them, and the
+    decode steps attend to one more encoding of them."""
     import dataclasses
 
     from repro_torch.models import decoding as TD
@@ -2837,17 +2886,21 @@ def teacher_forced(torch, cfg, params, prompt, cont, pad=0):
     with recording(TM) as routes, torch.no_grad():
         tok = torch.cat([prompt, cont], 1)
         ref, _ = TT.forward(tf, params, torch.cat(
-            [tok, tok.new_zeros((b, pad))], 1))
-        logits, cache = TD.prefill(tf, params, prompt, s + n)
+            [tok, tok.new_zeros((b, pad))], 1), enc_frames=enc_frames)
+        logits, cache = TD.prefill(tf, params, prompt, s + n,
+                                   enc_frames=enc_frames)
+        enc_out = (TT.encode(tf, params, enc_frames)
+                   if enc_frames is not None else None)
         e_pre = rel32(logits, ref[:, :s])
         finite = bool(torch.isfinite(ref).all())
         del logits
         e_dec = []
         for t in range(n):
             lg, cache = TT.decode_step(tf, params, cache,
-                                       tok[:, s + t:s + t + 1], s + t)
+                                       tok[:, s + t:s + t + 1], s + t,
+                                       enc_out=enc_out)
             e_dec.append(rel32(lg[:, 0], ref[:, s + t]))
-        del ref, cache
+        del ref, cache, enc_out
 
     def choices(t):
         """Each layer's sorted top-k experts of the calls of t tokens."""
@@ -4002,6 +4055,329 @@ def phase19(torch, smi, gate, plain_cuda_calls, dev, prefill_shape, timer,
     print(f"phase 19: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def phase20(torch, smi, gate, plain_cuda_calls, dev, timer, rates,
+            check_swa, time_swa) -> int:
+    """whisper-tiny at full width and depth (4 encoder and 4 decoder
+    layers, d 384, 6 heads of 64, 1500 frames, vocab 51865 padded to
+    52096), bf16 weights and frame embeddings drawn on the card from a
+    seeded generator: the swa kernel against its plain version at both
+    prefill shapes (width 64, 6/6 heads, no window; bf16 and float32),
+    timed beside plain, SDPA and the bound at WH_REQUEST's; generate at
+    WH_REQUEST twice (bitwise equal tokens, one swa launch a decoder layer
+    in the prefill, none in a decode step, no causal plain attention on a
+    CUDA tensor, the non-causal plain calls counted: every encoder and
+    cross-attention layer of a forward, every cross-attention layer of a
+    step) and at WH_FIRST; encode ms, prefill seconds, decode ms a step and
+    peak memory beside their bounds; prefill and teacher-forced decode
+    against one full forward in bf16 (GATE_SERVE) and in float32 at full
+    depth (GATE_TF32); a profiled prefill at each request (busy share, the
+    encoder's and the non-causal attention's shares of device time, the
+    swa kernel's device time), a profiled encoder (its plain attention's
+    share) and WH_PROFILED_STEPS profiled decode steps (the
+    cross-attention's share, its K and V projected from the encoder's
+    output every step); the encoder and cross-attention at full width in
+    float32 on the card against the CPU, and the reduced config on the
+    card against the CPU. Returns the swa launches of the main-path
+    runs."""
+    import dataclasses
+
+    import repro_torch.configs as TC
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import attention as TA
+    from repro_torch.models import decoding as TD
+    from repro_torch.models import transformer as TT
+
+    t_phase = time.perf_counter()
+    bw, _, bf16_flops = rates
+    cfg = TC.get("whisper-tiny")
+    arch = cfg.arch_id
+    L, Le = cfg.n_layers, cfg.n_enc_layers
+    h, kh, hd, d, dff = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+                         cfg.d_ff)
+    vp = cfg.padded_vocab
+    print(f"phase 20: {arch} at full width and depth ({Le} encoder and {L} "
+          f"decoder layers, d={d}, {h}/{kh} heads of {hd}, d_ff={dff}, "
+          f"{cfg.n_frames} frames, vocab {cfg.vocab_size} padded to {vp}; "
+          f"{cfg.dtype}) ({smi})", flush=True)
+    requests = (WH_REQUEST, WH_FIRST)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2000)
+    for b, _, s_len, _ in requests:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, s_len, h, hd), generator=gen,
+                            device=dev).to(dtype)
+            k, v = (torch.randn((b, s_len, kh, hd), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            tag = f"{arch} prefill b={b} s={s_len} h/kh={h}/{kh} d={hd}"
+            check_swa(tag, q, k, v, 0)
+            if s_len == WH_REQUEST[2] and dtype == torch.bfloat16:
+                time_swa(tag, q, k, v, 0, 50)
+            del q, k, v
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = TT.model_init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_items(params)]
+    print(f"  weights: {sum(t.numel() for t in leaves) / 1e6:.3f} M "
+          f"parameters, "
+          f"{sum(t.numel() * t.element_size() for t in leaves) / 1e6:.1f} "
+          f"MB, drawn on the card in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    del leaves
+    b0, n_frames = WH_REQUEST[:2]
+    frames = torch.randn((b0, n_frames, d), generator=gen,
+                         device=dev).to(cfg.torch_dtype)
+    prompts = [torch.randint(0, cfg.vocab_size, (b, s_len), generator=gen,
+                             device=dev) for b, _, s_len, _ in requests]
+    TD.generate(cfg, params, prompts[1][:1], 2, enc_frames=frames[:1])
+
+    def bounds(b, F, s_len, n_new):
+        """Least ms of the encoder, a prefill (the encoder included) and a
+        mean decode step on this card, bf16: the larger of the bytes that
+        must move (weights, frames, logits, the KV cache written or read,
+        the encoder's output a step reads) over the memory rate and the
+        products over the BF16 peak."""
+        enc_w = Le * (4 * d * d + 2 * d * dff) * 2
+        dec_w = L * (8 * d * d + 2 * d * dff) * 2
+        head = d * vp * 2
+        enc_fl = Le * (2 * b * F * (4 * d * d + 2 * d * dff)
+                       + 4 * b * h * F * F * hd)
+        cross_kv = 2 * b * F * 2 * d * d
+        pre_fl = enc_fl + L * (2 * b * s_len * (6 * d * d + 2 * d * dff)
+                               + cross_kv
+                               + 2 * b * h * hd * s_len * (s_len + 1)
+                               + 4 * b * h * s_len * F * hd) \
+            + 2 * b * s_len * d * vp
+        t = s_len + n_new / 2         # keys a mean step attends to
+        dec_fl = L * (2 * b * (6 * d * d + 2 * d * dff) + cross_kv
+                      + 4 * b * h * hd * t + 4 * b * h * F * hd) \
+            + 2 * b * d * vp
+        act = b * F * d * 2
+        enc_by = enc_w + 2 * act
+        pre_by = enc_w + dec_w + head + act + b * s_len * vp * 2 \
+            + L * 2 * b * s_len * d * 2
+        dec_by = dec_w + head + act + L * 2 * b * t * d * 2 + b * vp * 2
+        out = {name: 1e3 * max(by / bw, fl / bf16_flops)
+               for name, by, fl in (("encode", enc_by, enc_fl),
+                                    ("prefill", pre_by, pre_fl),
+                                    ("decode", dec_by, dec_fl))}
+        # a step's cross K/V as the port computes them: read the encoder's
+        # output, write K and V, read them back, in every decoder layer
+        out.update(kv_flop_share=cross_kv * L / dec_fl,
+                   kv_mb=L * 5 * act / 1e6, dec_mb=dec_by / 1e6)
+        return out
+
+    total = 0
+    with counting_calls(TA, "_full_attention") as full:
+        def counts():
+            out = (smod.swa_attention.launches, plain_cuda_calls["n"],
+                   full["n"])
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            full["n"] = 0
+            return out
+
+        def serve(prompt, n_new, label):
+            nonlocal total
+            b, s_len = prompt.shape
+            counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = TD.generate(cfg, params, prompt, n_new, enc_frames=frames)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            nl, pc, nf = counts()
+            total += nl
+            # generate encodes once for the steps; the prefill's forward
+            # encodes again and attends across; each step attends across
+            want_nf = Le + (Le + L) + L * (n_new - 1)
+            gate(nl == L and pc == 0 and nf == want_nf
+                 and out.shape == (b, n_new),
+                 f"{arch} {label}: generate {tuple(out.shape)} in "
+                 f"{wall:.3f} s ({out.numel() / wall:.1f} tokens/s end to "
+                 f"end; {smi}); flash-attention launches {nl} (one prefill "
+                 f"of {L} decoder layers), causal plain attention on CUDA "
+                 f"tensors {pc}, non-causal plain attention calls {nf} "
+                 f"({Le} encoder layers in generate, {Le} + {L} in the "
+                 f"prefill, {L} in each of {n_new - 1} steps)")
+            return out
+
+        def breakdown(prompt, n_new, label, base):
+            """Encode ms, prefill seconds and decode ms a step of the
+            request beside their bounds, with the launches of the prefill
+            and of the steps counted apart; the peak memory above
+            ``base``, what was allocated before the request."""
+            b, s_len = prompt.shape
+            bd = bounds(b, n_frames, s_len, n_new)
+            enc_ms = timer(lambda: TT.encode(cfg, params, frames), 10)
+            counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = TD.prefill(cfg, params, prompt, s_len + n_new,
+                                       enc_frames=frames)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            pre = counts()
+            finite = bool(torch.isfinite(logits).all())
+            last = torch.argmax(logits[:, -1, :cfg.vocab_size], -1)[:, None]
+            del logits
+            enc_out = TT.encode(cfg, params, frames)
+            counts()
+            step = TD.make_serve_step(cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for t in range(n_new - 1):
+                last, _, cache = step(params, cache, last, s_len + t,
+                                      enc_out)
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) / (n_new - 1)
+            dec = counts()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+            kshape = tuple(cache["units"]["b0"]["k"].shape)
+            print(f"    {label}: encode {enc_ms:.4f} ms (bound "
+                  f"{bd['encode']:.4f} ms), prefill {t_pre:.4f} s (bound "
+                  f"{bd['prefill'] / 1e3:.6f} s; {b * s_len / t_pre:.0f} "
+                  f"prompt tokens/s), decode {1e3 * t_dec:.3f} ms per step "
+                  f"(bound {bd['decode']:.4f} ms over {bd['dec_mb']:.1f} "
+                  f"MB; the cross K/V recompute is "
+                  f"{100 * bd['kv_flop_share']:.1f}% of a step's products "
+                  f"and moves {bd['kv_mb']:.1f} MB as computed; "
+                  f"{b / t_dec:.1f} tokens/s at batch {b}); peak device "
+                  f"memory {peak:.2f} GiB above the {base / 2**30:.2f} "
+                  f"GiB held before the "
+                  f"request's first generate ({smi})", flush=True)
+            gate(finite and pre[:2] == (L, 0) and pre[2] == Le + L
+                 and dec[:2] == (0, 0) and dec[2] == L * (n_new - 1)
+                 and kshape == (L, b, s_len + n_new, kh, hd),
+                 f"{arch} {label}: prefill logits finite; the prefill "
+                 f"launched swa {pre[0]} times and plain non-causal "
+                 f"attention {pre[2]} times, {n_new - 1} decode steps swa "
+                 f"{dec[0]} times and non-causal {dec[2]} times; causal "
+                 f"plain attention on CUDA tensors {pre[1] + dec[1]}; the "
+                 f"self-attention cache {kshape}")
+            del cache, enc_out
+
+        outs = []
+        for (b, _, s_len, n_new), prompt in zip(requests, prompts):
+            label = f"b={b} frames={n_frames} prompt={s_len}"
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = serve(prompt, n_new, label)
+            if not outs:
+                again = serve(prompt, n_new, label + ", again")
+                gate(torch.equal(out, again), f"{arch}: greedy decoding "
+                     f"gives identical tokens on a second run")
+                del again
+            outs.append(out)
+            breakdown(prompt, n_new, label, base)
+            torch.cuda.empty_cache()
+
+        # prefill + teacher-forced decode against one forward: bf16 under
+        # GATE_SERVE, float32 at full depth under GATE_TF32
+        c32 = dataclasses.replace(cfg, dtype="float32")
+        p32 = _tree_to(params, torch.float32)
+        for (b, _, s_len, _), prompt, out in zip(requests, prompts, outs):
+            for c, p, fr, tol in ((cfg, params, frames, GATE_SERVE),
+                                  (c32, p32, frames.float(), GATE_TF32)):
+                e_pre, e_dec, finite, _ = teacher_forced(
+                    torch, c, p, prompt, out[:, :ZOO_EXTRA], enc_frames=fr)
+                gate(finite and max([e_pre] + e_dec) <= tol,
+                     f"{arch} {c.dtype} b={b} prompt={s_len}: prefill + "
+                     f"teacher-forced decode against one forward over "
+                     f"{s_len + ZOO_EXTRA} tokens: rel prefill {e_pre:.2e}, "
+                     f"decode " + ", ".join(f"{e:.2e}" for e in e_dec)
+                     + f" (gate {tol:.0e})")
+            torch.cuda.empty_cache()
+
+        for (b, _, s_len, n_new), prompt in zip(requests, prompts):
+            _, by_name = marked_profile(
+                torch, f"{arch} prefill b={b} prompt={s_len}",
+                lambda: TD.prefill(cfg, params, prompt, s_len + n_new,
+                                   enc_frames=frames), TT, "encode",
+                "encoder", "encodes",
+                more=((TA, "_full_attention", "non-causal plain attention",
+                       "calls"),))
+            us, n = map(sum, zip(*[v for name, v in by_name.items()
+                                   if "swa_" in name] or [(0.0, 0)]))
+            print(f"    swa device time {us / 1e3 / max(n, 1):.4f} ms a "
+                  f"launch ({n} launches in the profiled prefill)",
+                  flush=True)
+        marked_profile(torch, f"{arch} encoder b={b0} frames={n_frames}",
+                       lambda: TT.encode(cfg, params, frames), TA,
+                       "_full_attention", "encoder plain attention", "calls")
+
+        # WH_PROFILED_STEPS decode steps of WH_REQUEST after its prefill
+        b, _, s_len, n_new = WH_REQUEST
+        _, cache = TD.prefill(cfg, params, prompts[0], s_len + n_new,
+                              enc_frames=frames)
+        enc_out = TT.encode(cfg, params, frames)
+        step = TD.make_serve_step(cfg)
+        last = prompts[0][:, -1:]
+
+        def steps():
+            nonlocal last, cache
+            for t in range(WH_PROFILED_STEPS):
+                last, _, cache = step(params, cache, last, s_len + t, enc_out)
+        marked_profile(torch, f"{arch} {WH_PROFILED_STEPS} decode steps "
+                       f"b={b} from position {s_len}", steps, TA,
+                       "cross_apply", "cross-attention (K/V projected anew)",
+                       "calls")
+        del cache, enc_out
+        del params, prompts, outs
+        torch.cuda.empty_cache()
+
+        # ---- the encoder and cross-attention at full width on the card
+        # against the CPU (float32, b = 1) ----------------------------------
+        on_cpu = _tree_to(p32, "cpu")
+        fr = frames[:1].float()
+        counts()
+        enc_card = TT.encode(c32, p32, fr)
+        cross = TT._layer(p32["units"], 0)["b0"]["cross"]
+        x = torch.randn((1, WH_REQUEST[2], d), generator=gen, device=dev)
+        got = TA.cross_apply(c32, cross, x, enc_card)
+        nl, pc, nf = counts()
+        enc_cpu = TT.encode(c32, on_cpu, fr.cpu())
+        want = TA.cross_apply(c32, TT._layer(on_cpu["units"], 0)["b0"]
+                              ["cross"], x.cpu(), enc_cpu)
+        e_enc, e_cross = rel_err(enc_card.cpu(), enc_cpu), \
+            rel_err(got.cpu(), want)
+        gate(max(e_enc, e_cross) <= GATE_STATS and nl == 0 and pc == 0
+             and nf == Le + 1,
+             f"{arch} float32 encoder (b=1, {n_frames} frames) and layer 0's "
+             f"cross-attention ({WH_REQUEST[2]} queries) on the card against "
+             f"the CPU: rel {e_enc:.2e} and {e_cross:.2e}; swa launches "
+             f"{nl}, non-causal plain calls {nf}")
+        del p32, on_cpu, enc_card, enc_cpu, got, want, frames
+        torch.cuda.empty_cache()
+
+        # ---- the reduced config on the card against the CPU (float32) --
+        red = TC.reduced(cfg)
+        cgen = torch.Generator()
+        cgen.manual_seed(20)
+        on_cpu = TT.model_init(red, cgen, "cpu")
+        on_card = _tree_to(on_cpu, dev)
+        tok = torch.randint(0, red.vocab_size, (2, 100), generator=cgen)
+        fr = torch.randn((2, red.n_frames, red.d_model), generator=cgen)
+        counts()
+        want, _ = TT.forward(red, on_cpu, tok, enc_frames=fr)
+        got, _ = TT.forward(red, on_card, tok.to(dev), enc_frames=fr.to(dev))
+        nl, pc, nf = counts()
+        e = rel_err(got.cpu(), want)
+        same = torch.equal(
+            TD.generate(red, on_card, tok[:, :80].to(dev), 8,
+                        enc_frames=fr.to(dev)).cpu(),
+            TD.generate(red, on_cpu, tok[:, :80], 8, enc_frames=fr))
+        gate(e <= GATE_STATS and nl == red.n_layers and pc == 0
+             and nf == red.n_enc_layers + red.n_layers and same,
+             f"reduced {arch} (float32) on the card against the CPU: logits "
+             f"rel {e:.2e}, flash-attention launches {nl}, non-causal plain "
+             f"calls {nf}, greedy tokens equal {same}")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def _tree_to(tree, device):
     return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -4847,6 +5223,9 @@ def main() -> int:
                                PREFILL, check_swa, time_swa)
     phase19(torch, smi, gate, plain_cuda_calls, dev, PREFILL, timer,
             (bw, flops, bf16_flops))
+    launches["swa"] += phase20(torch, smi, gate, plain_cuda_calls, dev,
+                               timer, (bw, flops, bf16_flops), check_swa,
+                               time_swa)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get(arch_id)`` -> ArchConfig,
 ``reduced(cfg)`` -> a CPU-sized variant of the same family.
 
-``ARCH_IDS`` and ``ALIASES`` list every architecture of the reference; only
-those whose blocks the port carries have a config here, and ``get`` of the
-one other, whisper-tiny, raises ``NotImplementedError``.
+``ARCH_IDS`` and ``ALIASES`` list every architecture of the reference, and
+each has a config here.
 """
 from __future__ import annotations
 
@@ -28,29 +27,12 @@ ARCH_IDS = (
 # external ids (dashes) map to module names (underscores)
 ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 
-#: architectures whose blocks the port carries
-PORTED = (
-    "qwen2_moe_a2_7b",
-    "phi3_mini_3_8b",
-    "llama3_2_3b",
-    "glm4_9b",
-    "chameleon_34b",
-    "llama4_scout_17b_a16e",
-    "minicpm3_4b",
-    "recurrentgemma_2b",
-    "xlstm_1_3b",
-)
-
 
 def get(arch_id: str) -> ArchConfig:
     mod_name = arch_id.replace("-", "_").replace(".", "_")
     if mod_name not in ARCH_IDS:
         raise ValueError(f"unknown architecture {arch_id!r}; known: "
                          f"{', '.join(ARCH_IDS)}")
-    if mod_name not in PORTED:
-        raise NotImplementedError(
-            f"{arch_id} is not ported yet (ROADMAP.md queue 1, item 16: "
-            f"whisper-tiny is the one left); ported: {', '.join(PORTED)}")
     return importlib.import_module(f"{__name__}.{mod_name}").CONFIG
 
 

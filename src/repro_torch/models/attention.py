@@ -1,16 +1,20 @@
 """Attention blocks: GQA and MLA (latent KV compression, minicpm3-style),
-full-sequence (train/prefill) and one-token decode over a cache. The port
-of ``repro.models.attention`` without cross-attention.
+full-sequence (train/prefill) and one-token decode over a cache, and
+whisper's cross-attention. The port of ``repro.models.attention``.
 
 ``sdpa`` takes the flash-attention kernel (``repro_torch.kernels.swa``) for
-a CUDA tensor, as the reference takes its Pallas kernel for causal attention
-on the TPU. On the CPU it follows the reference's dispatch: a blocked
-online-softmax scan over KV blocks above ``BLOCK_THRESHOLD`` query rows,
-materialised scores below it. K and V may come with fewer heads than q (the
-kernel maps heads; the plain paths repeat them), so ``gqa_apply`` hands them
-over un-repeated. A head width the kernel is not instantiated for (the
-reduced MLA config's 48) is zero-padded up to the next one it is, with q
-scaled so that the kernel's 1 / sqrt(width) is the reference's.
+causal attention on a CUDA tensor, as the reference takes its Pallas kernel
+for causal attention on the TPU. On the CPU it follows the reference's
+dispatch: a blocked online-softmax scan over KV blocks above
+``BLOCK_THRESHOLD`` query rows, materialised scores below it. Non-causal
+attention (whisper's encoder and cross-attention) takes materialised,
+unmasked scores on every device (:func:`_full_attention`), as the
+reference's does: the kernel is causal only. K and V may come with fewer
+heads than q (the kernel maps heads; the plain paths repeat them), so
+``gqa_apply`` hands them over un-repeated. A head width the kernel is not
+instantiated for (the reduced MLA config's 48) is zero-padded up to the
+next one it is, with q scaled so that the kernel's 1 / sqrt(width) is the
+reference's.
 """
 from __future__ import annotations
 
@@ -76,6 +80,10 @@ def mla_spec(cfg: ArchConfig, stack: int = 0):
     }
 
 
+def cross_spec(cfg: ArchConfig, stack: int = 0):
+    return gqa_spec(cfg, stack)
+
+
 # ---------------------------------------------------------------- core math
 def _repeat_kv(k, n_rep: int):
     if n_rep == 1:
@@ -97,6 +105,15 @@ def _plain_attention(q, k, v, *, window: int):
     if window:
         mask &= kpos[None, :] > qpos[:, None] - window
     scores = scores.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _full_attention(q, k, v):
+    """Materialised-score attention with no mask: every query attends to
+    every key. q (B,Sq,H,D), k/v (B,Sk,H,D); Sq and Sk may differ."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) \
+        * (1.0 / math.sqrt(q.shape[3]))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -145,17 +162,26 @@ def _kernel_attention(q, k, v, *, window: int):
     return out[..., :d]
 
 
-def sdpa(q, k, v, *, window: int = 0, force_blocked: Optional[bool] = None):
-    """Causal attention dispatch. q (B,S,H,D); k, v (B,S,KH,D), H % KH == 0.
+def sdpa(q, k, v, *, causal: bool = True, window: int = 0,
+         force_blocked: Optional[bool] = None):
+    """Attention dispatch. q (B,Sq,H,D); k, v (B,Sk,KH,D), H % KH == 0.
 
-    A CUDA tensor runs the flash-attention kernel; a CPU tensor the blocked
-    scan for long sequences, materialised scores for short ones (K and V
-    repeated to H heads for both).
+    Causal (Sq == Sk): a CUDA tensor runs the flash-attention kernel; a CPU
+    tensor the blocked scan for long sequences, materialised scores for
+    short ones. Not causal: materialised, unmasked scores on every device
+    (the reference's non-causal callers all force that path), with no
+    window. K and V are repeated to H heads for every plain path.
     """
-    if q.is_cuda:
+    if not causal:
+        if window or force_blocked:
+            raise ValueError("non-causal attention takes materialised "
+                             "scores with no window")
+    elif q.is_cuda:
         return _kernel_attention(q, k, v, window=window)
     n_rep = q.shape[2] // k.shape[2]
     k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+    if not causal:
+        return _full_attention(q, k, v)
     blocked = (q.shape[1] > BLOCK_THRESHOLD if force_blocked is None
                else force_blocked)
     if blocked:
@@ -346,3 +372,19 @@ def mla_decode(cfg: ArchConfig, p: Dict, x, cache: Dict, pos: int):
     probs = torch.softmax(s, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, 1, nh * dv)
     return out @ p["wo"], cache
+
+
+# ------------------------------------------------------- cross attn (enc-dec)
+def cross_apply(cfg: ArchConfig, p: Dict, x, enc_out):
+    """Cross-attention: queries from the decoder's x (B, S, d), keys and
+    values from ``enc_out`` (B, Se, d), every query on every frame. K and V
+    are projected from ``enc_out`` at every call, a decode step's too (no
+    cross-KV cache, as in the reference)."""
+    b, s, _ = x.shape
+    se = enc_out.shape[1]
+    hd = cfg.hd
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = (enc_out @ p["wk"]).reshape(b, se, cfg.n_kv_heads, hd)
+    v = (enc_out @ p["wv"]).reshape(b, se, cfg.n_kv_heads, hd)
+    out = sdpa(q, k, v, causal=False)
+    return out.reshape(b, s, cfg.n_heads * hd) @ p["wo"]

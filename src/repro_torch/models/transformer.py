@@ -1,10 +1,13 @@
 """Model composition: the block registry for attention blocks (GQA or MLA
 attention with a dense MLP, ``"attn"``; GQA attention with sparse experts,
-``"attn_moe"``), the RG-LRU recurrent block with a dense MLP (``"rec"``)
-and the xLSTM blocks, mLSTM (``"m"``) and sLSTM (``"s"``), each a
-pre-norm residual with no MLP of its own; parameters, full-sequence
-forward (the prefill path), the caches and the one-token decode step. The
-port of ``repro.models.transformer`` for those five block kinds.
+``"attn_moe"``), the RG-LRU recurrent block with a dense MLP (``"rec"``),
+the xLSTM blocks, mLSTM (``"m"``) and sLSTM (``"s"``), each a pre-norm
+residual with no MLP of its own, and whisper's decoder block (``"xattn"``:
+causal self-attention, cross-attention on the encoder's output, a GELU
+MLP) over an encoder of ``"enc"`` blocks (non-causal self-attention and
+the MLP); learned positions; parameters, full-sequence forward (the
+prefill path), the caches and the one-token decode step. The port of
+``repro.models.transformer``.
 
 Layers are grouped into repeating units (the config's ``pattern``); each
 pattern slot ``b{slot}`` has parameters stacked on a leading unit axis, and
@@ -28,30 +31,30 @@ from . import xlstm as X
 from .common import (ArchConfig, apply_norm, init_params, mlp_apply,
                      mlp_spec, norm_spec, spec)
 
-#: what the port does not carry yet (whisper's encoder-decoder, its
-#: cross-attention and learned positions), and the ROADMAP.md item that
-#: owes it
-_LATER = "ROADMAP.md queue 1, item 16"
-#: the block kinds the port carries
-KINDS = ("attn", "attn_moe", "rec", "m", "s")
+#: the block kinds a config's pattern may name (the encoder's ``"enc"``
+#: blocks come with ``enc_dec``)
+KINDS = ("attn", "attn_moe", "rec", "m", "s", "xattn")
+#: rows of the decoder's learned position table; a position past them
+#: takes row ``pos % POS_ROWS``, as in the reference
+POS_ROWS = 4096
 
 
 def require_supported(cfg: ArchConfig) -> None:
-    """Raise unless the port carries every block of ``cfg``."""
-    missing = []
+    """Raise ValueError unless ``cfg`` names blocks the model runs: known
+    kinds, a known attention and position kind, and cross-attention only
+    over an encoder."""
+    bad = []
     other = sorted(set(cfg.pattern) - set(KINDS))
     if other:
-        missing.append(f"block kinds {other}")
+        bad.append(f"block kinds {other} (known: {', '.join(KINDS)})")
     if cfg.attn_kind not in ("gqa", "mla"):
-        missing.append(f"attn_kind={cfg.attn_kind!r}")
-    if cfg.enc_dec:
-        missing.append("the encoder-decoder")
-    if cfg.pos_emb not in ("rope", "none"):
-        missing.append(f"pos_emb={cfg.pos_emb!r}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(missing)} not ported yet ({_LATER}); "
-            f"the port carries the block kinds {', '.join(KINDS)}")
+        bad.append(f"attn_kind={cfg.attn_kind!r}")
+    if cfg.pos_emb not in ("rope", "none", "learned"):
+        bad.append(f"pos_emb={cfg.pos_emb!r}")
+    if "xattn" in cfg.pattern and not cfg.enc_dec:
+        bad.append("xattn blocks without an encoder (enc_dec=False)")
+    if bad:
+        raise ValueError(f"{cfg.arch_id}: {'; '.join(bad)}")
 
 
 def _stack(tree, stack: int):
@@ -78,6 +81,9 @@ def _block_spec(cfg: ArchConfig, kind: str, stack: int):
         p["attn"] = A.gqa_spec(cfg, stack)
         p["moe"] = M.moe_spec(cfg, stack)
         return p
+    if kind == "xattn":
+        p["norm3"] = norm_spec(cfg, stack)
+        p["cross"] = A.cross_spec(cfg, stack)
     p["attn"] = (A.mla_spec(cfg, stack) if cfg.attn_kind == "mla"
                  else A.gqa_spec(cfg, stack))
     p["mlp"] = _stack(mlp_spec(cfg), stack)
@@ -99,6 +105,15 @@ def abstract_params(cfg: ArchConfig):
     if cfg.n_rem_layers:
         tree["rem"] = {f"r{r}": _block_spec(cfg, _rem_kind(cfg, r), 0)
                        for r in range(cfg.n_rem_layers)}
+    if cfg.pos_emb == "learned":
+        # 4096 rows, as the reference sizes it (whisper's own is 448)
+        tree["pos_table"] = spec((POS_ROWS, d), (None, None))
+    if cfg.enc_dec:
+        tree["encoder"] = {
+            "pos_table": spec((cfg.n_frames, d), (None, None)),
+            "layers": _block_spec(cfg, "enc", cfg.n_enc_layers),
+            "final_norm": norm_spec(cfg),
+        }
     return tree
 
 
@@ -134,9 +149,10 @@ def _layers(tree, n: int):
 
 
 def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
-                 cache_len):
+                 cache_len, enc_out=None):
     """Full-sequence block. Returns (x, aux loss, cache|None); the aux
-    loss is a float32 scalar tensor for an expert block, else 0.0."""
+    loss is a float32 scalar tensor for an expert block, else 0.0.
+    ``enc_out`` is the encoder's output for an ``"xattn"`` block."""
     h = apply_norm(cfg, p["norm1"], x)
     if kind in ("m", "s"):
         mix = X.mlstm_apply if kind == "m" else X.slstm_apply
@@ -151,6 +167,11 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
         x = x + out
         return (x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)),
                 0.0, cache)
+    if kind == "enc":
+        # non-causal self-attention: the frames attend to one another
+        x = x + A.cross_apply(cfg, p["attn"], h, h)
+        return (x + mlp_apply(cfg, p["mlp"], apply_norm(cfg, p["norm2"], x)),
+                0.0, None)
     if cfg.attn_kind == "mla":
         out = A.mla_apply(cfg, p["attn"], h, positions,
                           return_cache=return_cache, cache_len=cache_len)
@@ -165,10 +186,14 @@ def _block_apply(cfg, kind, p, x, positions, *, window, return_cache,
     if kind == "attn_moe":
         out, aux = M.moe_apply(cfg, p["moe"], h)
         return x + out, aux, cache
+    if kind == "xattn":
+        x = x + A.cross_apply(cfg, p["cross"], h, enc_out)
+        h = apply_norm(cfg, p["norm3"], x)
     return x + mlp_apply(cfg, p["mlp"], h), 0.0, cache
 
 
-def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
+def _block_decode(cfg, kind, p, x, cache, pos: int, *, window,
+                  enc_out=None):
     h = apply_norm(cfg, p["norm1"], x)
     if kind in ("m", "s"):
         mix = X.mlstm_decode if kind == "m" else X.slstm_decode
@@ -185,6 +210,9 @@ def _block_decode(cfg, kind, p, x, cache, pos: int, *, window):
     h = apply_norm(cfg, p["norm2"], x)
     if kind == "attn_moe":
         return x + M.moe_apply(cfg, p["moe"], h)[0]
+    if kind == "xattn":
+        x = x + A.cross_apply(cfg, p["cross"], h, enc_out)
+        h = apply_norm(cfg, p["norm3"], x)
     return x + mlp_apply(cfg, p["mlp"], h)
 
 
@@ -208,19 +236,20 @@ def _logits(cfg: ArchConfig, params, x):
     return x @ params["head"]
 
 
-def _unit(cfg, p, x, positions, window, return_cache=False, cache_len=0):
+def _unit(cfg, p, x, positions, window, enc_out=None, return_cache=False,
+          cache_len=0):
     """One unit: the pattern's blocks in order -> (x, aux, {slot: cache})."""
     aux, caches = 0.0, {}
     for slot, kind in enumerate(cfg.pattern):
         x, a, caches[f"b{slot}"] = _block_apply(
             cfg, kind, p[f"b{slot}"], x, positions, window=window,
-            return_cache=return_cache, cache_len=cache_len)
+            return_cache=return_cache, cache_len=cache_len, enc_out=enc_out)
         aux = aux + a
     return x, aux, caches
 
 
-def _remat_unit(cfg, p, x, positions, window):
-    return _unit(cfg, p, x, positions, window)[:2]
+def _remat_unit(cfg, p, x, positions, window, enc_out):
+    return _unit(cfg, p, x, positions, window, enc_out)[:2]
 
 
 def _stack_caches(caches):
@@ -229,14 +258,36 @@ def _stack_caches(caches):
                    for k in caches[0][slot]} for slot in caches[0]}
 
 
-def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
-            remat: bool = True, return_cache: bool = False,
-            cache_len: int = 0, window_override: Optional[int] = None):
+def _learned_positions(params, x, positions):
+    """x plus the decoder's learned rows at ``positions % POS_ROWS``."""
+    tbl = params["pos_table"]
+    return x + tbl[positions % tbl.shape[0]].to(x.dtype)
+
+
+def encode(cfg: ArchConfig, params: Dict, frames):
+    """The encoder over precomputed frame embeddings ``frames`` (B, F, d)
+    in the parameters' type, F <= n_frames (no conv/mel frontend, as in
+    the reference): learned positions ``pos_table[:F]``, the ``"enc"``
+    layers and a final norm -> (B, F, d)."""
+    enc = params["encoder"]
+    x = frames + enc["pos_table"][:frames.shape[1]].to(frames.dtype)
+    for p in _layers(enc["layers"], cfg.n_enc_layers):
+        x = _block_apply(cfg, "enc", p, x, None, window=0,
+                         return_cache=False, cache_len=0)[0]
+    return apply_norm(cfg, enc["final_norm"], x)
+
+
+def forward(cfg: ArchConfig, params: Dict, tokens, *, enc_frames=None,
+            patch_embeds=None, remat: bool = True,
+            return_cache: bool = False, cache_len: int = 0,
+            window_override: Optional[int] = None):
     """Full-sequence forward -> (logits, aux_loss[, cache]).
 
     tokens: (B, S) int64. ``patch_embeds`` (B, n_patches, d), for a config
     with ``n_patches``, replaces the first n_patches embedding rows (early
-    fusion). With ``return_cache`` the per-layer caches (KV, MLA's
+    fusion). ``enc_frames`` (B, F, d), required for an ``enc_dec`` config,
+    goes through :func:`encode` once, and every ``"xattn"`` block attends
+    to its output. With ``return_cache`` the per-layer caches (KV, MLA's
     latent, the RG-LRU's state and conv history, the mLSTM's (C, n, m)
     and conv history, or the sLSTM's (c, n, m, h)), stacked on a leading
     unit axis per pattern slot and sized to ``cache_len`` (default S), are
@@ -255,6 +306,14 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
         npch = patch_embeds.shape[1]
         x = torch.cat([patch_embeds.to(x.dtype), x[:, npch:]], dim=1)
     positions = torch.arange(s, device=tokens.device)
+    if cfg.pos_emb == "learned":
+        x = _learned_positions(params, x, positions)
+    enc_out = None
+    if cfg.enc_dec:
+        if enc_frames is None:
+            raise ValueError(f"{cfg.arch_id} is an encoder-decoder: forward "
+                             f"needs enc_frames")
+        enc_out = encode(cfg, params, enc_frames)
     window = cfg.window if window_override is None else window_override
     rematerialise = remat and not return_cache and torch.is_grad_enabled()
     aux, caches = 0.0, []
@@ -262,9 +321,10 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
         if rematerialise:
             # the forward draws no random numbers: no RNG state to replay
             x, a = checkpoint(_remat_unit, cfg, p, x, positions, window,
-                              use_reentrant=False, preserve_rng_state=False)
+                              enc_out, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x, a, c = _unit(cfg, p, x, positions, window,
+            x, a, c = _unit(cfg, p, x, positions, window, enc_out,
                             return_cache=return_cache, cache_len=cache_len)
             caches.append(c)
         aux = aux + a
@@ -272,7 +332,8 @@ def forward(cfg: ArchConfig, params: Dict, tokens, *, patch_embeds=None,
     for r in range(cfg.n_rem_layers):
         x, a, rem[f"r{r}"] = _block_apply(
             cfg, _rem_kind(cfg, r), params["rem"][f"r{r}"], x, positions,
-            window=window, return_cache=return_cache, cache_len=cache_len)
+            window=window, return_cache=return_cache, cache_len=cache_len,
+            enc_out=enc_out)
         aux = aux + a
     logits = _logits(cfg, params, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device) + aux
@@ -315,20 +376,30 @@ def materialize_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_step(cfg: ArchConfig, params: Dict, cache, tokens, pos: int, *,
-                window_override: Optional[int] = None):
+                enc_out=None, window_override: Optional[int] = None):
     """One-token decode. tokens: (B, 1) int64, pos: int position.
+    ``enc_out`` (B, F, d), :func:`encode`'s output, is required for an
+    ``enc_dec`` config: cross-attention projects its K and V anew every
+    step, as the reference does.
 
     Returns (logits (B, 1, V), cache); the cache is updated in place.
     """
+    if cfg.enc_dec and enc_out is None:
+        raise ValueError(f"{cfg.arch_id} is an encoder-decoder: decode_step "
+                         f"needs enc_out")
     x = params["embed"][tokens]
+    if cfg.pos_emb == "learned":
+        x = _learned_positions(
+            params, x, torch.full((1,), pos, device=tokens.device))
     window = cfg.window if window_override is None else window_override
     units, unit_cache = params["units"], cache["units"]
     for i in range(cfg.n_units):
         p, c = _layer(units, i), _layer(unit_cache, i)
         for slot, kind in enumerate(cfg.pattern):
             x = _block_decode(cfg, kind, p[f"b{slot}"], x, c[f"b{slot}"],
-                              pos, window=window)
+                              pos, window=window, enc_out=enc_out)
     for r in range(cfg.n_rem_layers):
         x = _block_decode(cfg, _rem_kind(cfg, r), params["rem"][f"r{r}"], x,
-                          cache["rem"][f"r{r}"], pos, window=window)
+                          cache["rem"][f"r{r}"], pos, window=window,
+                          enc_out=enc_out)
     return _logits(cfg, params, x), cache

@@ -55,6 +55,8 @@ def init_state(cfg: ArchConfig, generator: torch.Generator,
 def make_loss_fn(cfg: ArchConfig, tcfg: TrainConfig):
     def loss_fn(params, batch: Dict):
         logits, aux = T.forward(cfg, params, batch["tokens"],
+                                enc_frames=batch.get("enc_frames"),
+                                patch_embeds=batch.get("patch_embeds"),
                                 remat=tcfg.remat)
         ce, metrics = cross_entropy(logits, batch["labels"])
         metrics["aux"] = aux

@@ -252,6 +252,21 @@ def test_swa_kernel_at_the_recurrentgemma_shape(dev, dtype, window):
     assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
 
 
+@pytest.mark.parametrize("s", [1, 4, 224])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_at_the_whisper_decoder_shape(dev, dtype, s):
+    # whisper-tiny's decoder self-attention: width 64, 6 query heads on 6
+    # KV heads, no window, prompts from one row (shorter than every tile and
+    # every bf16 TMA box) to whisper's 224 tokens of conditioning
+    q, k, v = _qkv(dev, 8, s, 6, 6, 64, dtype, seed=64 + s)
+    n0 = smod.swa_attention.launches
+    got = smod.swa_attention(q, k, v)
+    assert smod.swa_attention.launches == n0 + 1
+    assert torch.equal(got, smod.swa_attention(q, k, v))
+    want = smod.swa_attention_ref(q.float(), k.float(), v.float())
+    assert _rel(got, want) <= (1e-5 if dtype == torch.float32 else 1e-2)
+
+
 def test_swa_kernel_reads_strided_views(dev):
     # q, k, v as slices of one fused projection: strided, not contiguous
     gen = torch.Generator(device=dev)
@@ -551,6 +566,56 @@ def test_reduced_xlstm_on_the_card_matches_the_cpu(dev, b, s, tol):
     out = TD.generate(cfg, params_dev, tok[:, :40].to(dev), 8)
     ref = TD.generate(cfg, params, tok[:, :40], 8)
     assert torch.equal(out.cpu(), ref)
+
+
+def _reduced_whisper(dev):
+    cfg = TC.reduced(TC.get("whisper-tiny"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    params = TT.model_init(cfg, gen, "cpu")
+    rng = np.random.RandomState(0)
+    frames = torch.as_tensor(rng.randn(2, cfg.n_frames, cfg.d_model)
+                             .astype(np.float32))
+    tok = torch.as_tensor(rng.randint(0, cfg.vocab_size, size=(2, 40)))
+    return cfg, params, _to(params, dev), frames, tok
+
+
+def test_whisper_encoder_and_cross_attention_on_the_card_match_the_cpu(dev):
+    # non-causal attention takes materialised scores on the card too: no
+    # swa launch, the CPU's result
+    from repro_torch.models import attention as TA
+    cfg, params, params_dev, frames, _ = _reduced_whisper(dev)
+    n0 = smod.swa_attention.launches
+    enc_dev = TT.encode(cfg, params_dev, frames.to(dev))
+    enc = TT.encode(cfg, params, frames)
+    assert _rel(enc_dev.cpu(), enc) <= 1e-5
+    cross = {k: v[0] for k, v in params["units"]["b0"]["cross"].items()}
+    x = torch.randn(2, 5, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    got = TA.cross_apply(cfg, _to(cross, dev), x.to(dev), enc_dev)
+    want = TA.cross_apply(cfg, cross, x, enc)
+    assert _rel(got.cpu(), want) <= 1e-5
+    q = torch.randn(2, 7, 6, 64, device=dev)
+    out = TA.sdpa(q, q, q, causal=False)
+    assert not torch.allclose(out[:, 0], q[:, 0])   # row 0 sees later keys
+    assert smod.swa_attention.launches == n0
+
+
+def test_reduced_whisper_on_the_card_matches_the_cpu(dev):
+    # the decoder's self-attention launches the kernel once a layer (width
+    # 64, 4/4 heads); the encoder and the cross-attention do not
+    cfg, params, params_dev, frames, tok = _reduced_whisper(dev)
+    fr_dev = frames.to(dev)
+    n0 = smod.swa_attention.launches
+    got, _ = TT.forward(cfg, params_dev, tok.to(dev), enc_frames=fr_dev)
+    assert smod.swa_attention.launches == n0 + cfg.n_layers
+    want, _ = TT.forward(cfg, params, tok, enc_frames=frames)
+    assert _rel(got.cpu(), want) <= 1e-4
+    for s in (1, 4, 24):
+        out = TD.generate(cfg, params_dev, tok[:, :s].to(dev), 8,
+                          enc_frames=fr_dev)
+        ref = TD.generate(cfg, params, tok[:, :s], 8, enc_frames=frames)
+        assert torch.equal(out.cpu(), ref)
 
 
 def test_mlstm_chunk_scan_on_the_card_matches_the_recurrence(dev,

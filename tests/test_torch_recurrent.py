@@ -55,6 +55,17 @@ _J_APPLY = jax.jit(JS.rglru_apply, static_argnums=0,
                    static_argnames="return_cache")
 _J_STEP = jax.jit(JS.rglru_decode, static_argnums=0)
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the port's loops launch
+    many small ops, and in a suite run in parallel processes each op's
+    thread team would contend for the cores with the other workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _MODELS = {}
 
 

@@ -41,6 +41,17 @@ def _x64():
     jax.config.update("jax_enable_x64", False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread while this file runs: the port's loops launch
+    many small ops, and in a suite run in parallel processes each op's
+    thread team would contend for the cores with the other workers'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _grid_data(family, n, seed, rows=3, cols=3):
     """Exact samples of a planted grid with random parameters, drawn by the
     reference (the packages' RNG streams differ)."""

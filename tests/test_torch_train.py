@@ -32,6 +32,7 @@ from repro.checkpoint import io as JK  # noqa: E402
 from repro.data import pipeline as JP  # noqa: E402
 from repro.kernels.swa.ops import _swa_bwd  # noqa: E402
 from repro.kernels.swa.ref import swa_attention_ref as j_swa_ref  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
 from repro.optim import adamw as JO  # noqa: E402
 from repro.train import consensus as JCT  # noqa: E402
 from repro.train import loss as JL  # noqa: E402
@@ -41,7 +42,7 @@ import repro_torch.configs as TC  # noqa: E402
 from repro_torch.core import grid_graph, random_model  # noqa: E402
 from repro_torch.data import pipeline as TP  # noqa: E402
 from repro_torch.interop import (consensus_state_from_numpy,  # noqa: E402
-                                 train_state_from_numpy)
+                                 params_from_numpy, train_state_from_numpy)
 from repro_torch.kernels.swa import kernel as smod  # noqa: E402
 from repro_torch.kernels.swa.ops import SwaFunction, swa_op  # noqa: E402
 from repro_torch.launch import train as TLAUNCH  # noqa: E402
@@ -290,6 +291,45 @@ def test_remat_on_equals_remat_off_bitwise(ref_state, batch):
         l1, _ = TT.forward(TCFG, params, tb["tokens"], remat=True)
         l0, _ = TT.forward(TCFG, params, tb["tokens"], remat=False)
     assert torch.equal(l1, l0)
+
+
+@pytest.mark.parametrize("arch,key", [
+    ("chameleon-34b", "patch_embeds"),          # no patch slots: ignored
+    ("llama4-scout-17b-a16e", "patch_embeds"),  # early fusion, 4 slots
+    ("whisper-tiny", "enc_frames")])
+def test_loss_takes_the_batch_inputs_the_reference_takes(arch, key):
+    # the reduced config's loss with patch embeddings or encoder frames in
+    # the batch, against the reference's make_loss_fn; then the
+    # rematerialised backward through the port's loss, which must carry the
+    # encoder's output into the checkpointed units
+    jcfg, tcfg = JC.reduced(JC.get(arch)), TC.reduced(TC.get(arch))
+    jparams = JT.model_init(jcfg, jax.random.PRNGKey(1))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), tcfg, CPU)
+    rng = np.random.RandomState(0)
+    n = tcfg.n_frames if key == "enc_frames" else 4
+    arrs = {"tokens": rng.randint(0, tcfg.vocab_size, (2, SEQ)),
+            "labels": rng.randint(0, tcfg.vocab_size, (2, SEQ)),
+            key: rng.randn(2, n, tcfg.d_model).astype(np.float32)}
+    jloss, jm = jax.jit(JS.make_loss_fn(jcfg, JS.TrainConfig()))(
+        jparams, {k: jnp.asarray(v) for k, v in arrs.items()})
+    tbatch = {k: torch.as_tensor(v) for k, v in arrs.items()}
+    loss_fn = TS.make_loss_fn(tcfg, TS.TrainConfig())
+    tloss, tm = loss_fn(params, tbatch)
+    np.testing.assert_allclose(float(tloss), float(jloss), rtol=GRAD_TOL)
+    np.testing.assert_allclose(float(tm["nll"]), float(jm["nll"]),
+                               rtol=GRAD_TOL)
+    if key == "enc_frames":
+        grads, _ = TS.grads_of(tcfg, TS.TrainConfig(remat=True), params,
+                               tbatch)
+        assert all(bool(torch.isfinite(g).all())
+                   for g in TO.tree_leaves(grads))
+        # the loss reaches the encoder only through the cross-attention
+        assert float(grads["encoder"]["layers"]["attn"]["wq"].abs().max()) > 0
+    elif tcfg.n_patches:
+        # the embeddings take the first rows: without them the loss moves
+        without = loss_fn(params, {k: v for k, v in tbatch.items()
+                                   if k != key})[0]
+        assert float(without) != float(tloss)
 
 
 def test_train_step_matches_reference(ref_state, batch):
