@@ -229,6 +229,25 @@ Phases:
      share); the encoder and a cross-attention layer at full
      width in float32 on the card against the CPU; the reduced config on
      the card against the CPU.
+ 21. training the attention families: the swa autograd Function at
+     width 96 (minicpm3's MLA, 40/40 heads, V zero-padded from 64; bf16
+     and float32) and at qwen2-moe's 16/16 heads of 128, dq, dk, dv
+     bitwise those of plain autograd, one forward launch;
+     ``_kernel_attention`` at the reduced MLA width 48 padded to 64
+     against plain autograd at 48 (GATE_SWA); the forward, the
+     plain-recompute backward, SDPA's forward and backward and the bounds
+     timed; the router's stable sort beside torch.topk at 8192 x 60;
+     minicpm3 (16 of 62 layers, b = 2 x 2048) and qwen2-moe (4 of 24
+     layers, b = 4 x 2048, the capacity path) at full width, random bf16
+     weights drawn on the card, 3 AdamW steps on one fixed batch: loss,
+     nll and aux finite, nll falling, two swa launches and one plain
+     recompute a layer a step, step wall, tokens/s and peak memory beside
+     the step's bound, the dropped share, one step's gradients repeated
+     bitwise, the padding experts' gradients exactly zero and the
+     router's finite and non-zero, a profiled step (the recompute's, the
+     dispatch's, the expert products' and the combine's shares); one sync
+     step of each of the six reduced configs on the card against the CPU
+     under phase 15's gates.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -391,6 +410,22 @@ TRAIN_LR = 5e-5
 TRAIN_REDUCED_SEQ, TRAIN_APART = 128, 1e-2
 GATE_TRAIN_LOSS, GATE_TRAIN_STEP, GATE_TRAIN_FLIPS = 1e-5, 1e-3, 1e-4
 GATE_TRAIN_ADAM = 1e-6
+
+#: phase 21's attention-family training at full width, depth cut to fit
+#: one card: (architecture, layers, batch, sequence, steps on one fixed
+#: batch). minicpm3 at TRAIN_SYNC's shape, 16 of 62 layers (1.379 B
+#: parameters, about 15.4 GiB of bf16 parameters and gradients and float32
+#: moments); qwen2-moe at phase 16's prefill shape, 8192 tokens, so the
+#: capacity path routes, 4 of 24 layers (3.043 B parameters, about 34.0
+#: GiB of state, and 4.6 GiB of float32 logits)
+TRAIN_FAMILIES = (("minicpm3-4b", 16, 2, 2048, 3),
+                  ("qwen2-moe-a2.7b", 4, 4, 2048, 3))
+#: phase 21's Function checks at width 96: minicpm3's MLA (40/40 heads, V
+#: zero-padded from 64) at TRAIN_SYNC's batch and length in bf16 and at
+#: TRAIN_SWA_F32's length in float32; and the reduced MLA's width 48,
+#: padded to 64 inside ``_kernel_attention`` (b, s, heads)
+TRAIN_SWA96 = (2, 2048, 40, 96, 64)
+TRAIN_PAD48 = (2, 512, 4)
 
 #: phase 16's attention families, served one after another on one card at
 #: full width with random weights: (architecture, depth or None for the
@@ -815,6 +850,53 @@ def planted_structure(torch, np, graph, family, n, gen, device):
     return (z @ chol.T).float().contiguous()
 
 
+def range_shares(torch, prof, names):
+    """Device time of a profile by record_function range, from the
+    profiler's raw events: a device event counts for a range when the op
+    that launched it (its linked correlation id) started inside one of that
+    range's spans, on any thread (each name's spans must not overlap).
+    Returns (busy seconds, device ns, {name: (ns, spans)}, {device kernel
+    name: (us, count)}, events read)."""
+    from torch.autograd import DeviceType
+
+    ranges = {mark: [] for mark in names}
+    op_start, device = {}, []
+    n_events = 0
+    for e in prof.profiler.kineto_results.events():
+        n_events += 1
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name in ranges:
+                ranges[name].append((e.start_ns(), e.end_ns()))
+            elif not name.startswith("cu"):      # not a runtime API call
+                op_start[e.correlation_id()] = e.start_ns()
+        elif name not in ranges:
+            device.append((name, e.start_ns(), e.end_ns(),
+                           e.linked_correlation_id()))
+    busy_ns, end, kernel_ns = 0, float("-inf"), 0
+    for _, a, b, _ in sorted(device, key=lambda x: x[1]):
+        kernel_ns += b - a
+        if b > end:
+            busy_ns += b - max(a, end)
+            end = b
+    marked = {}
+    for mark in names:
+        spans = sorted(ranges[mark])
+        starts = [lo for lo, _ in spans]
+        marked_ns = 0
+        for _, a, b, link in device:
+            t = op_start.get(link)
+            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t <= spans[i][1]:
+                marked_ns += b - a
+        marked[mark] = (marked_ns, len(spans))
+    by_name = {}
+    for name, a, b, _ in device:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + (b - a) / 1e3, n + 1)
+    return busy_ns / 1e9, kernel_ns, marked, by_name, n_events
+
+
 def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
                    noun: str, more=()):
     """One call of ``fn`` under torch.profiler: prints the device's busy
@@ -831,7 +913,6 @@ def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
     inside one of the range's calls. Building the profiler's event tree
     (``prof.events()``) costs tens of microseconds an event, minutes for a
     prefill whose sLSTM loop launches a million kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     marks = [(mod, attr, what, noun)] + list(more)
@@ -858,48 +939,16 @@ def marked_profile(torch, label: str, fn, mod, attr: str, what: str,
     finally:
         for (m, a, _, _), marked in zip(marks, plain):
             setattr(m, a, marked)
-    ranges = {mark: [] for mark in names}
-    op_start, device = {}, []
-    n_events = 0
-    for e in prof.profiler.kineto_results.events():
-        n_events += 1
-        name = e.name()
-        if e.device_type() == DeviceType.CPU:
-            if name in ranges:
-                ranges[name].append((e.start_ns(), e.end_ns()))
-            elif not name.startswith("cu"):      # not a runtime API call
-                op_start[e.correlation_id()] = e.start_ns()
-        elif name not in ranges:
-            device.append((name, e.start_ns(), e.end_ns(),
-                           e.linked_correlation_id()))
-    busy_ns, end, kernel_ns = 0, float("-inf"), 0
-    for _, a, b, _ in sorted(device, key=lambda x: x[1]):
-        kernel_ns += b - a
-        if b > end:
-            busy_ns += b - max(a, end)
-            end = b
-    busy = busy_ns / 1e9
-    shares = []
-    for (_, _, w, n), mark in zip(marks, names):
-        spans = sorted(ranges[mark])
-        starts = [lo for lo, _ in spans]
-        marked_ns = 0
-        for _, a, b, link in device:
-            t = op_start.get(link)
-            i = -1 if t is None else bisect.bisect_right(starts, t) - 1
-            if i >= 0 and t <= spans[i][1]:
-                marked_ns += b - a
-        shares.append(f"{w} {marked_ns / 1e6:.1f} ms over {len(spans)} {n} "
-                      f"= {100 * marked_ns / max(kernel_ns, 1):.1f}%")
+    busy, kernel_ns, marked, by_name, n_events = range_shares(
+        torch, prof, names)
+    shares = [f"{w} {marked[mark][0] / 1e6:.1f} ms over {marked[mark][1]} "
+              f"{n} = {100 * marked[mark][0] / max(kernel_ns, 1):.1f}%"
+              for (_, _, w, n), mark in zip(marks, names)]
     print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
           f"({100 * busy / wall:.1f}%, under the profiler); "
           f"{'; '.join(shares)} of {kernel_ns / 1e6:.1f} ms of device time "
           f"({n_events} events; {time.perf_counter() - t_all:.1f} s with the "
           f"trace's read-back)", flush=True)
-    by_name = {}
-    for name, a, b, _ in device:
-        us, n = by_name.get(name, (0.0, 0))
-        by_name[name] = (us + (b - a) / 1e3, n + 1)
     for name, (us, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:8]:
         print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
@@ -2447,6 +2496,74 @@ def tree_equal(torch, a, b) -> bool:
         for k, x in la.items())
 
 
+def tree_copy(tree, device):
+    """A copy on ``device`` of a tree of tensors (dicts, NamedTuples)."""
+    if isinstance(tree, dict):
+        return {k: tree_copy(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_copy(v, device) for v in tree))
+    return tree.to(device, copy=True)
+
+
+def reduced_step_check(torch, gate, red, label, cgen, seed, dev, tcfg,
+                       ocfg_r, patches: int = 0):
+    """One synchronous train step of the reduced config ``red`` (float32)
+    on the card and on the port's CPU path from one state (drawn on the
+    CPU from ``cgen`` seeded with ``seed``) and one batch (SyntheticLM at
+    TRAIN_REDUCED_SEQ, global batch 4, with ``patches`` random patch
+    embeddings): nll (and aux) within GATE_TRAIN_LOSS, gradients within
+    GATE_STATS (per leaf, normwise), AdamW from the same state and the
+    CPU's gradients within GATE_TRAIN_ADAM, and after the step at most
+    GATE_TRAIN_FLIPS of the parameters more than lr * TRAIN_APART apart,
+    the others within GATE_TRAIN_STEP of the update."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as TS
+
+    cpu = torch.device("cpu")
+    cgen.manual_seed(seed)
+    on_cpu = TS.init_state(red, cgen, cpu)
+    on_card = tree_copy(on_cpu, dev)
+    start = tree_copy(on_cpu.params, cpu)
+    data = DataConfig(vocab_size=red.vocab_size, seq_len=TRAIN_REDUCED_SEQ,
+                      global_batch=4)
+    b_cpu = SyntheticLM(data, cpu).batch(0)
+    if patches:
+        b_cpu["patch_embeds"] = torch.randn(
+            (4, patches, red.d_model), generator=cgen)
+    b_card = tree_copy(b_cpu, dev)
+    g_cpu, m_cpu = TS.grads_of(red, tcfg, on_cpu.params, b_cpu)
+    g_card, m_card = TS.grads_of(red, tcfg, on_card.params, b_card)
+    keys = ("nll", "aux") if red.n_experts else ("nll",)
+    e_loss = max(abs(float(m_card[k]) - float(m_cpu[k]))
+                 / abs(float(m_cpu[k])) for k in keys)
+    e_grad = train_diff(torch, g_card, g_cpu)
+    signs = sum(int(((a.cpu() * b) < 0).sum()) for a, b in
+                zip(tree_leaves(g_card), tree_leaves(g_cpu)))
+    # AdamW from the same state and the CPU's gradients, card against CPU
+    same_cpu, same_card = tree_copy(on_cpu, cpu), tree_copy(on_cpu, dev)
+    adamw.update(ocfg_r, g_cpu, same_cpu.opt, same_cpu.params)
+    adamw.update(ocfg_r, tree_copy(g_cpu, dev), same_card.opt,
+                 same_card.params)
+    e_adam = train_diff(torch, same_card, same_cpu)
+    step_r = TS.make_train_step(red, ocfg_r, tcfg)
+    step_r(on_cpu, b_cpu)
+    step_r(on_card, b_card)
+    apart_by = ocfg_r.lr * TRAIN_APART
+    apart, e_step = train_split(torch, on_card.params, on_cpu.params, start,
+                                apart_by)
+    gate(e_loss <= GATE_TRAIN_LOSS and e_grad <= GATE_STATS
+         and e_adam <= GATE_TRAIN_ADAM and apart <= GATE_TRAIN_FLIPS
+         and e_step <= GATE_TRAIN_STEP,
+         f"{label}, card against CPU: {' and '.join(keys)} rel "
+         f"{e_loss:.2e}, gradients {e_grad:.2e} (largest per leaf, "
+         f"normwise; {signs} coordinates of opposite sign); AdamW from the "
+         f"same gradients rel {e_adam:.2e}; after the step {apart:.2e} of "
+         f"the parameters more than {apart_by:.0e} apart, the others within "
+         f"{e_step:.2e} of the update")
+
+
 def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
             bf16_flops, bw):
     """Training on the card: the swa autograd Function against plain
@@ -2711,54 +2828,18 @@ def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
     ocfg_r = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
     cpu = torch.device("cpu")
 
-    def to(tree, device):
-        if isinstance(tree, dict):
-            return {k: to(v, device) for k, v in tree.items()}
-        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-            return type(tree)(*(to(v, device) for v in tree))
-        return tree.to(device, copy=True)
-
     cgen = torch.Generator()
-    cgen.manual_seed(17)
-    on_cpu = TS.init_state(red, cgen, cpu)
-    on_card = to(on_cpu, dev)
-    start = to(on_cpu.params, cpu)
     data = DataConfig(vocab_size=red.vocab_size, seq_len=TRAIN_REDUCED_SEQ,
                       global_batch=4)
-    b_cpu, b_card = (SyntheticLM(data, x).batch(0) for x in (cpu, dev))
-    g_cpu, m_cpu = TS.grads_of(red, tcfg, on_cpu.params, b_cpu)
-    g_card, m_card = TS.grads_of(red, tcfg, on_card.params, b_card)
-    e_loss = abs(float(m_card["nll"]) - float(m_cpu["nll"])) \
-        / abs(float(m_cpu["nll"]))
-    e_grad = train_diff(torch, g_card, g_cpu)
-    signs = sum(int(((a.cpu() * b) < 0).sum()) for a, b in
-                zip(tree_leaves(g_card), tree_leaves(g_cpu)))
-    # AdamW from the same state and the CPU's gradients, card against CPU
-    same_cpu, same_card = to(on_cpu, cpu), to(on_cpu, dev)
-    adamw.update(ocfg_r, g_cpu, same_cpu.opt, same_cpu.params)
-    adamw.update(ocfg_r, to(g_cpu, dev), same_card.opt, same_card.params)
-    e_adam = train_diff(torch, same_card, same_cpu)
-    step_r = TS.make_train_step(red, ocfg_r, tcfg)
-    step_r(on_cpu, b_cpu)
-    step_r(on_card, b_card)
+    reduced_step_check(torch, gate, red, "reduced sync step", cgen, 17, dev,
+                       tcfg, ocfg_r)
     apart_by = ocfg_r.lr * TRAIN_APART
-    apart, e_step = train_split(torch, on_card.params, on_cpu.params, start,
-                                apart_by)
-    gate(e_loss <= GATE_TRAIN_LOSS and e_grad <= GATE_STATS
-         and e_adam <= GATE_TRAIN_ADAM and apart <= GATE_TRAIN_FLIPS
-         and e_step <= GATE_TRAIN_STEP,
-         f"reduced sync step, card against CPU: nll rel {e_loss:.2e}, "
-         f"gradients {e_grad:.2e} (largest per leaf, normwise; {signs} "
-         f"coordinates of opposite sign); AdamW from the same gradients "
-         f"rel {e_adam:.2e}; after the step {apart:.2e} of the parameters "
-         f"more than {apart_by:.0e} apart, the others within {e_step:.2e} "
-         f"of the update")
     for scheme in CT.SCHEMES:
         ccfg = CT.ConsensusConfig(n_pods=2, scheme=scheme, h_steps=2)
         cgen.manual_seed(18)
         c_cpu = CT.init_state(red, cgen, ccfg, cpu)
-        c_card = to(c_cpu, dev)
-        c_start = to(c_cpu, cpu)
+        c_card = tree_copy(c_cpu, dev)
+        c_start = tree_copy(c_cpu, cpu)
         round_fn = CT.make_round_step(red, ocfg_r, tcfg, ccfg)
         bcpu = next(pod_sharded_batches(SyntheticLM(data, cpu), 2, 2))
         bdev = next(pod_sharded_batches(SyntheticLM(data, dev), 2, 2))
@@ -2786,7 +2867,7 @@ def phase15(torch, np, smi, gate, launches, plain_cuda_calls, dev, timer,
 
     def fresh():
         cgen.manual_seed(19)
-        return to(CT.init_state(red, cgen, ccfg, cpu), dev)
+        return tree_copy(CT.init_state(red, cgen, ccfg, cpu), dev)
 
     def rounds(state, start_round, n):
         batches = pod_sharded_batches(SyntheticLM(data, dev), 2, 2,
@@ -4378,6 +4459,401 @@ def phase20(torch, smi, gate, plain_cuda_calls, dev, timer, rates,
     return total
 
 
+def training_profile(torch, label: str, fn, pieces=()):
+    """One call of ``fn`` (a train step) under torch.profiler: prints the
+    device's busy share and the shares of its device time in the plain
+    attention recompute (a record_function range around
+    ``SwaFunction.backward``) and in each of ``pieces``, (module, function
+    name, range name) of a function the step calls (the expert layer's
+    dispatch, expert products and combine; the AdamW update), and returns
+    what ``fn`` returned.
+
+    A piece's forward calls (the step's forward and the remat recompute)
+    run inside a range around the call. Its backward runs inside a range
+    that two identity autograd Functions open and close: one on the piece's
+    first output opens it when the gradient reaches that output, one on the
+    first input that needs a gradient closes it when the gradient leaves.
+    The engine runs the nodes made between the two, the piece's own, in
+    between (it takes the ready node made last first)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels.swa import ops as sops
+
+    class Opens(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, name, stack):
+            ctx.name, ctx.stack = name, stack
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            rf = record_function(ctx.name)
+            rf.__enter__()
+            ctx.stack.append(rf)
+            return g, None, None
+
+    class Closes(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, stack):
+            ctx.stack = stack
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            if ctx.stack:
+                ctx.stack.pop().__exit__(None, None, None)
+            return g, None
+
+    def marked(plain, name):
+        stack = []
+
+        def call(*args):
+            with record_function(name):
+                args = list(args)
+                i = next((j for j, a in enumerate(args)
+                          if isinstance(a, torch.Tensor) and a.requires_grad
+                          and torch.is_grad_enabled()), None)
+                if i is not None:
+                    args[i] = Closes.apply(args[i], stack)
+                out = plain(*args)
+                if i is not None:
+                    if isinstance(out, tuple):
+                        out = (Opens.apply(out[0], name, stack),) + out[1:]
+                    else:
+                        out = Opens.apply(out, name, stack)
+            return out
+        return call
+
+    recompute = "swa_backward_recompute"
+    names = [recompute] + [n for _, _, n in pieces]
+    plain = [getattr(m, a) for m, a, _ in pieces]
+    backward = sops.SwaFunction.backward
+
+    def traced(ctx, g):
+        with record_function(recompute):
+            return backward(ctx, g)
+    sops.SwaFunction.backward = staticmethod(traced)
+    for (m, a, n), f in zip(pieces, plain):
+        setattr(m, a, marked(f, n))
+    t_all = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        sops.SwaFunction.backward = backward
+        for (m, a, _), f in zip(pieces, plain):
+            setattr(m, a, f)
+    busy, kernel_ns, marked_ns, by_name, n_events = range_shares(
+        torch, prof, names)
+    shares = [f"{n} {marked_ns[n][0] / 1e6:.1f} ms over {marked_ns[n][1]} "
+              f"ranges = {100 * marked_ns[n][0] / max(kernel_ns, 1):.1f}%"
+              for n in names]
+    print(f"  profiled {label}: wall {wall:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / wall:.1f}%, under the profiler); "
+          f"{'; '.join(shares)} of {kernel_ns / 1e6:.1f} ms of device time "
+          f"({n_events} events; {time.perf_counter() - t_all:.1f} s with the "
+          f"trace's read-back)", flush=True)
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:8]:
+        print(f"    device {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    return out
+
+
+def phase21(torch, np, smi, gate, plain_cuda_calls, dev, timer,
+            bf16_flops) -> int:
+    """Training of the attention families on the card: the swa autograd
+    Function at width 96 (TRAIN_SWA96: minicpm3's MLA, 40/40 heads, V
+    zero-padded from 64; bf16 and float32) against plain autograd
+    (bitwise gradients, one forward launch) and ``_kernel_attention`` at
+    the reduced MLA width 48 padded to 64 (float32, against plain autograd
+    at 48 within GATE_SWA); the forward, the plain-recompute backward, a
+    flash backward's bound and SDPA's forward and backward timed at width
+    96 and at qwen2-moe's 16/16 heads of 128; the router's stable sort
+    timed beside torch.topk at phase 16's qwen2-moe prefill (8192 tokens,
+    60 experts); TRAIN_FAMILIES (minicpm3 and qwen2-moe at full width,
+    depth cut, random bf16 weights drawn on the card) for their steps on
+    one fixed batch: loss, nll and aux finite, nll falling, two swa
+    launches a layer a step and one plain recompute, step wall, tokens/s
+    and peak memory above what the phase found held, beside the step's
+    bound; the capacity path's dropped share; one step's gradients
+    repeated from one state bitwise; qwen2-moe's padding experts at
+    exactly zero gradient and its router's gradient finite and non-zero;
+    a profiled step (busy share, the recompute's share, the dispatch's,
+    expert products', combine's and the AdamW update's); then one sync
+    step of each of ZOO's reduced configs (float32; llama4-scout with its
+    patch embeddings) on the card against the CPU under phase 15's gates.
+    Returns the swa launches of the trained models' steps."""
+    import dataclasses
+
+    import torch.nn.functional as Fn
+
+    import repro_torch.configs as TC
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.kernels.swa import ops as sops
+    from repro_torch.models import attention as TA
+    from repro_torch.models import moe as TM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as TS
+
+    t_phase = time.perf_counter()
+    print(f"phase 21: training the attention families ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2100)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- the autograd Function at the new widths ------------------------
+    def time_training(tag, q, k, v, g):
+        """The kernel forward, the plain-recompute backward, SDPA's forward
+        and backward, and the bounds of a flash forward and backward."""
+        def recompute():
+            torch.autograd.grad(smod.swa_attention_ref(q, k, v), (q, k, v),
+                                g)
+
+        def kernel_fwd():
+            with torch.no_grad():
+                smod.swa_attention(q, k, v)
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        gt = g.transpose(1, 2)
+
+        def library():
+            torch.autograd.grad(Fn.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt),
+                gt)
+        rec_ms = timer(recompute, 5)
+        fwd_ms = timer(kernel_fwd, 10)
+        lib_ms = timer(library, 10)
+        b_, s_, h_, d_ = q.shape
+        pairs = s_ * (s_ + 1) // 2
+        fwd_bound = 4 * d_ * pairs * b_ * h_ / bf16_flops * 1e3
+        print(f"  swa training {tag}: kernel forward {fwd_ms:.4f} ms "
+              f"(bound {fwd_bound:.4f}, operations), backward by plain "
+              f"recompute {rec_ms:.4f} ms a layer, a flash backward's bound "
+              f"{2.5 * fwd_bound:.4f} ms (operations); sdpa forward and "
+              f"backward {lib_ms:.4f} ms", flush=True)
+
+    b, s_len, h, d, dv = TRAIN_SWA96
+    cases = ((torch.bfloat16, (b, s_len, h, h, d), dv),
+             (torch.float32, (b, TRAIN_SWA_F32[1], h, h, d), dv),
+             (torch.bfloat16, (4, 2048, 16, 16, 128), 128))
+    for dtype, (b_, s_, h_, kh_, d_), dv_ in cases:
+        q = randn((b_, s_, h_, d_), dtype).requires_grad_(True)
+        k = randn((b_, s_, kh_, d_), dtype).requires_grad_(True)
+        v = Fn.pad(randn((b_, s_, kh_, dv_), dtype),
+                   (0, d_ - dv_)).requires_grad_(True)
+        g = randn((b_, s_, h_, d_), dtype)
+        n0 = smod.swa_attention.launches
+        out = sops.swa_op(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        n_fwd = smod.swa_attention.launches - n0
+        want = torch.autograd.grad(smod.swa_attention_ref(q, k, v),
+                                   (q, k, v), g)
+        with torch.no_grad():
+            ref32 = smod.swa_attention_ref(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        name = str(dtype).split(".")[-1]
+        e = rel_err(out.detach(), ref32)
+        tag = (f"b={b_} s={s_} h/kh={h_}/{kh_} d={d_}"
+               + (f" (V padded from {dv_})" if dv_ < d_ else "") + f" {name}")
+        gate(same and e <= GATE_SWA[name] and n_fwd == 1
+             and not out[..., dv_:].any(),
+             f"swa Function {tag}: dq, dk, dv bitwise equal to plain "
+             f"autograd {same}; forward rel {e:.2e} against the plain "
+             f"version in float32; kernel launches {n_fwd}; V's padding "
+             f"zero in the output")
+        if dtype == torch.bfloat16:
+            time_training(tag, q, k, v, g)
+        del q, k, v, g, out, got, want, ref32
+        torch.cuda.empty_cache()
+
+    b4, s4, h4 = TRAIN_PAD48
+    q, k, v, g = (randn((b4, s4, h4, 48), torch.float32) for _ in range(4))
+    ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n0 = smod.swa_attention.launches
+    out = TA._kernel_attention(*ins, window=0)
+    got = torch.autograd.grad(out, ins, g)
+    n_fwd = smod.swa_attention.launches - n0
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = TA._plain_attention(*plain, window=0)
+    want = torch.autograd.grad(ref, plain, g)
+    errs = [rel_err(out.detach(), ref.detach())] + [
+        rel_err(a, w) for a, w in zip(got, want)]
+    gate(max(errs) <= GATE_SWA["float32"] and n_fwd == 1,
+         f"_kernel_attention b={b4} s={s4} h={h4} d=48 padded to 64 "
+         f"(float32) against plain autograd at 48: out, dq, dk, dv rel "
+         + ", ".join(f"{x:.2e}" for x in errs) + f"; kernel launches "
+         f"{n_fwd}")
+    del q, k, v, g, ins, out, got, plain, ref, want
+
+    # ---- the router's stable top-k against torch.topk --------------------
+    moe = TC.get("qwen2-moe-a2.7b")
+    probs = torch.softmax(randn((8192, moe.n_experts), torch.float32), -1)
+    kk = moe.experts_per_tok
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    tv, ti = torch.topk(probs, kk, dim=-1)
+    same = torch.equal(vals[:, :kk], tv) and torch.equal(idx[:, :kk], ti)
+    sort_ms = timer(lambda: torch.sort(probs, dim=-1, descending=True,
+                                       stable=True), 50)
+    topk_ms = timer(lambda: torch.topk(probs, kk, dim=-1), 50)
+    gate(same, f"router top-{kk} of 8192 x {moe.n_experts} probabilities: "
+         f"the stable sort's first {kk} equal torch.topk's (untied) {same}; "
+         f"sort {sort_ms:.4f} ms against topk {topk_ms:.4f} ms a layer")
+    del probs, vals, idx, tv, ti
+
+    # ---- the attention families at full width, depth cut ----------------
+    total = 0
+    for arch, layers, bsz, seq, n_steps in TRAIN_FAMILIES:
+        full = TC.get(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        mla = cfg.attn_kind == "mla"
+        L, hq = cfg.n_layers, cfg.n_heads
+        dqk = cfg.qk_nope_dim + cfg.qk_rope_dim if mla else cfg.hd
+        dvv = cfg.v_head_dim if mla else cfg.hd
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mgen = torch.Generator(device=dev)
+        mgen.manual_seed(21)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = TS.init_state(cfg, mgen, dev)
+        torch.cuda.synchronize()
+        t_draw = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(state.params))
+        p_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(state.params))
+        ep = TM.padded_experts(cfg.n_experts) if cfg.n_experts else 0
+        idle = (L * (ep - cfg.experts_per_tok) * 3 * cfg.d_model
+                * (cfg.d_expert or cfg.d_ff)) if ep else 0
+        active = n_params - cfg.padded_vocab * cfg.d_model - idle
+        tokens = bsz * seq
+        pairs = seq * (seq + 1) // 2
+        attn_flop = 3 * 2 * pairs * bsz * hq * (dqk + dvv) * L
+        bound_s = (6 * active * tokens + attn_flop) / bf16_flops
+        print(f"  {arch}: {L} of {full.n_layers} layers at full width "
+              f"(d {cfg.d_model}, {hq} heads at width {dqk}"
+              + (f", V {dvv} padded to {dqk}" if mla else "")
+              + (f", {cfg.n_experts} experts padded to {ep}, top-"
+                 f"{cfg.experts_per_tok}, {cfg.n_shared_experts} shared"
+                 if ep else "")
+              + f"), {n_params / 1e9:.3f} B parameters ({active / 1e9:.3f} "
+              f"B used a token), {2 * p_bytes / 2**30:.1f} GiB of "
+              f"parameters and gradients and {8 * n_params / 2**30:.1f} GiB "
+              f"of moments; drawn in {t_draw:.2f} s; b={bsz} s={seq}, "
+              f"{n_steps} steps on one batch, lr {TRAIN_LR}", flush=True)
+        ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                 total_steps=n_steps)
+        tcfg = TS.TrainConfig()
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=seq, global_batch=bsz),
+                            dev).batch(0)
+        step = TS.make_train_step(cfg, ocfg, tcfg)
+        losses, walls, per_step, plain_per_step = [], [], [], []
+        dropped = None
+        for i in range(n_steps):
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            with recording(TM) as routes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            per_step.append(smod.swa_attention.launches)
+            plain_per_step.append(plain_cuda_calls["n"])
+            losses.append(tuple(float(metrics[k]) for k in
+                                ("nll", "z_loss", "aux")))
+            if i == 0 and routes:
+                fwd = [r for _, r in routes[:L]]
+                dropped = (sum(int((~r.keep).sum()) for r in fwd),
+                           sum(r.keep.numel() for r in fwd), fwd[0].cap)
+            del routes
+        total += sum(per_step)
+        peak = torch.cuda.max_memory_allocated() - held
+        steady = statistics.median(walls[1:])
+        nll = [x[0] for x in losses]
+        loss = [x[0] + x[1] + tcfg.aux_weight * x[2] for x in losses]
+        print(f"    steps: loss " + ", ".join(f"{x:.4f}" for x in loss)
+              + ", nll " + ", ".join(f"{x:.4f}" for x in nll)
+              + ", aux " + ", ".join(f"{x[2]:.4f}" for x in losses)
+              + f"; wall {', '.join(f'{w:.4f}' for w in walls)} s (median "
+              f"after the first {steady:.4f} s, {tokens / steady:.1f} "
+              f"tokens/s; bound {1e3 * bound_s:.1f} ms: 6 x {active / 1e9:.3f}"
+              f" B x {tokens} tokens and {attn_flop / 1e12:.2f} TFLOP of "
+              f"attention at BF16, {steady / bound_s:.1f}x); peak "
+              f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held "
+              f"({smi})", flush=True)
+        if dropped is not None:
+            print(f"    capacity path: {dropped[0]} of {dropped[1]} (token, "
+                  f"slot) pairs dropped ({100 * dropped[0] / dropped[1]:.2f}"
+                  f"%, {dropped[2]} slots an expert and group)", flush=True)
+        gate(all(np.isfinite(losses).ravel()) and nll[-1] < nll[0]
+             and all(n == 2 * L for n in per_step)
+             and all(n == L for n in plain_per_step)
+             and (dropped is None or dropped[0] > 0),
+             f"{arch} train steps: loss, nll, aux finite, last nll "
+             f"{nll[-1]:.4f} below the first {nll[0]:.4f}; swa launches per "
+             f"step {per_step} ({2 * L} expected: the forward and the remat "
+             f"recompute); plain swa calls per step {plain_per_step} (the "
+             f"backward's recompute, one a layer)"
+             + ("" if dropped is None else
+                f"; {dropped[0]} pairs dropped on the capacity path"))
+
+        g1, m1 = TS.grads_of(cfg, tcfg, state.params, batch)
+        g2, m2 = TS.grads_of(cfg, tcfg, state.params, batch)
+        same = tree_equal(torch, g1, g2) and all(
+            torch.equal(m1[k], m2[k]) for k in m1)
+        del g2, m2
+        gate(same, f"{arch}: one step's gradients from one state and batch, "
+             f"twice: bitwise equal {same}")
+        if ep:
+            moe_g = g1["units"]["b0"]["moe"]
+            e = cfg.n_experts
+            pad = max(float(moe_g[w][:, e:].abs().max())
+                      for w in ("w_gate", "w_up", "w_out"))
+            rg = moe_g["router"].float()
+            gate(pad == 0.0 and bool(torch.isfinite(rg).all())
+                 and float(rg.abs().max()) > 0,
+                 f"{arch}: padding experts {e}..{ep - 1} w_gate, w_up, "
+                 f"w_out gradients largest {pad:.1e} (exactly zero "
+                 f"expected); router gradient finite, largest "
+                 f"{float(rg.abs().max()):.3e}")
+        del g1, m1
+        torch.cuda.empty_cache()
+
+        pieces = (((TM, "dispatch", "moe_dispatch"),
+                   (TM, "expert_ffn", "moe_expert_products"),
+                   (TM, "combine", "moe_combine")) if ep else ()) \
+            + ((adamw, "update", "adamw_update"),)
+        state, metrics = training_profile(
+            torch, f"{arch} step b={bsz} s={seq}",
+            lambda: step(state, batch), pieces)
+        del state, metrics, batch, step
+        torch.cuda.empty_cache()
+
+    # ---- the reduced configs on the card against the CPU (float32) ------
+    ocfg_r = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    cgen = torch.Generator()
+    for i, (arch, _) in enumerate(ZOO):
+        red = TC.reduced(TC.get(arch))
+        reduced_step_check(torch, gate, red, f"reduced {arch} sync step",
+                           cgen, 2110 + i, dev, TS.TrainConfig(), ocfg_r,
+                           patches=red.n_patches)
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def _tree_to(tree, device):
     return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -5226,6 +5702,8 @@ def main() -> int:
     launches["swa"] += phase20(torch, smi, gate, plain_cuda_calls, dev,
                                timer, (bw, flops, bf16_flops), check_swa,
                                time_swa)
+    launches["swa"] += phase21(torch, np, smi, gate, plain_cuda_calls, dev,
+                               timer, bf16_flops)
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

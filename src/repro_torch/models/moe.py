@@ -14,7 +14,15 @@ an out-of-range slot with ``mode="drop"``; here they go to one spare slot
 past the buffer's end, which is cut off before the expert products. Kept
 slots are distinct, so the dispatch is an assignment, and the combine
 gathers each token's k slot outputs and sums them: no atomics and no host
-synchronisation, so a call is bitwise repeatable on the card.
+synchronisation, so a call is bitwise repeatable on the card. The backward
+is too: the dispatch's source is an expanded copy of the tokens (its
+gradient a sum over the k slots, not an index-add), and the combine's
+gather has a scatter-add for a gradient in which only dropped pairs share
+a slot, each adding an exact zero.
+
+The dispatch, the expert products and the combine are functions of their
+own (:func:`dispatch`, :func:`expert_ffn`, :func:`combine`), called through
+the module, so a profiler can mark each.
 """
 from __future__ import annotations
 
@@ -75,7 +83,13 @@ def route(cfg: ArchConfig, router, xt, n_groups: int = 16) -> Routing:
     t = xt.shape[0]
     e, k = cfg.n_experts, cfg.experts_per_tok
     probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)   # (T, E)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)
+    # the first k of a stable descending sort: equal probabilities go to
+    # the lower expert index, as jax.lax.top_k breaks ties (torch.topk
+    # promises no order among them); untied rows get topk's experts,
+    # order and values
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
     # load-balance aux loss (Switch): E * sum_e f_e * p_e
@@ -96,39 +110,52 @@ def route(cfg: ArchConfig, router, xt, n_groups: int = 16) -> Routing:
                    cap, aux)
 
 
+def dispatch(cfg: ArchConfig, r: Routing, xt):
+    """Every kept pair's token row into its (expert, position) slot of a
+    (G, E_pad, cap, d) buffer; dropped pairs go to one spare slot past the
+    end, cut off after. Returns (buffer, each pair's slot)."""
+    ep, k = padded_experts(cfg.n_experts), cfg.experts_per_tok
+    g, cap = r.keep.shape[0], r.cap
+    t, d = xt.shape
+    tg = t // g
+    slot = torch.where(r.keep, r.gate_idx * cap + r.pos, ep * cap)
+    buf = torch.zeros((g, ep * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    # each token's row k times over (the values of repeat_interleave; its
+    # gradient a sum over the expanded axis)
+    src = xt.reshape(g, tg, 1, d).expand(g, tg, k, d).reshape(g, tg * k, d)
+    buf.scatter_(1, slot[..., None].expand(g, tg * k, d), src)
+    return buf[:, :ep * cap].reshape(g, ep, cap, d), slot
+
+
+def expert_ffn(cfg: ArchConfig, p: Dict, buf):
+    """The expert FFN per (group, expert): (G, E, C, d) x (E, d, f)."""
+    h = act_fn(cfg, torch.einsum("gecd,edf->gecf", buf, p["w_gate"]),
+               torch.einsum("gecd,edf->gecf", buf, p["w_up"]))
+    return torch.einsum("gecf,efd->gecd", h, p["w_out"])
+
+
+def combine(cfg: ArchConfig, r: Routing, out_e, slot):
+    """Each pair's slot output, gate-weighted (0 if dropped), summed over
+    the token's k slots -> (G * Tg, d)."""
+    k = cfg.experts_per_tok
+    g, e, cap, d = out_e.shape
+    n_pairs = slot.shape[1]
+    slot = torch.where(r.keep, slot, 0)
+    w = (r.gate_vals * r.keep).to(out_e.dtype)
+    picked = out_e.reshape(g, e * cap, d).gather(
+        1, slot[..., None].expand(g, n_pairs, d))
+    picked = torch.where(r.keep[..., None], picked * w[..., None], 0)
+    return picked.reshape(g, n_pairs // k, k, d).sum(2).reshape(-1, d)
+
+
 def moe_apply(cfg: ArchConfig, p: Dict, x,
               n_groups: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). Returns (output, aux load-balance loss in float32)."""
     b, s, d = x.shape
-    k = cfg.experts_per_tok
-    ep = padded_experts(cfg.n_experts)
     xt = x.reshape(b * s, d)
     r = route(cfg, p["router"], xt, n_groups)
-    g, cap = r.keep.shape[0], r.cap
-    tg = xt.shape[0] // g
-
-    # dispatch: every kept pair's token row into its (expert, position)
-    # slot; dropped pairs go to one spare slot past the end, cut off after
-    slot = torch.where(r.keep, r.gate_idx * cap + r.pos, ep * cap)
-    buf = torch.zeros((g, ep * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.scatter_(1, slot[..., None].expand(g, tg * k, d),
-                 xt.reshape(g, tg, d).repeat_interleave(k, dim=1))
-    buf = buf[:, :ep * cap].reshape(g, ep, cap, d)
-
-    # expert FFN per (group, expert): (G, E, C, d) x (E, d, f)
-    h = act_fn(cfg, torch.einsum("gecd,edf->gecf", buf, p["w_gate"]),
-               torch.einsum("gecd,edf->gecf", buf, p["w_up"]))
-    out_e = torch.einsum("gecf,efd->gecd", h, p["w_out"])
-    out_e = out_e.reshape(g, ep * cap, d)
-
-    # combine: each pair's slot output, gate-weighted (0 if dropped), summed
-    # over the token's k slots
-    slot = torch.where(r.keep, slot, 0)
-    w = (r.gate_vals * r.keep).to(x.dtype)
-    picked = out_e.gather(1, slot[..., None].expand(g, tg * k, d))
-    picked = torch.where(r.keep[..., None], picked * w[..., None], 0)
-    out = picked.reshape(g, tg, k, d).sum(2).reshape(b * s, d)
-
+    buf, slot = dispatch(cfg, r, xt)
+    out = combine(cfg, r, expert_ffn(cfg, p, buf), slot)
     if cfg.n_shared_experts:
         out = out + act_fn(cfg, xt @ p["shared_gate"],
                            xt @ p["shared_up"]) @ p["shared_out"]

@@ -1424,3 +1424,126 @@ def test_bf16_calls_allocate_only_outputs_and_scratch(dev):
         extra = torch.cuda.max_memory_allocated() - base
         assert extra <= want + 8 * 2**20 < want + 4 * C * n * p
         del out
+
+
+# ------------------------------------------ training of the attention families
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,v_width", [(40, 64), (32, 96)])
+def test_swa_function_at_width_96_equals_plain_autograd(dev, h, v_width,
+                                                        dtype):
+    """The training shapes at width 96: minicpm3's MLA (40/40 heads, V
+    zero-padded from 64) and phi3 (32/32). One forward launch, and dq, dk,
+    dv bit for bit those of plain autograd (the backward recomputes
+    through the plain version)."""
+    q, k, v = _qkv(dev, 2, 300, h, h, 96, dtype, seed=h)
+    v = torch.nn.functional.pad(v[..., :v_width], (0, 96 - v_width))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    g = torch.randn(q.shape, device=dev).to(dtype)
+    n0 = smod.swa_attention.launches
+    out = swa_op(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert smod.swa_attention.launches == n0 + 1
+    want = torch.autograd.grad(smod.swa_attention_ref(q, k, v), (q, k, v), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with torch.no_grad():
+        ref = smod.swa_attention_ref(q.float(), k.float(), v.float())
+    assert _rel(out.detach(), ref) <= (1e-2 if dtype == torch.bfloat16
+                                       else 1e-5)
+    assert not out[..., v_width:].any()      # V's padding stays zero
+
+
+def test_kernel_attention_padded_width_gradients_match_plain(dev):
+    """The reduced MLA width 48 runs the kernel zero-padded to 64 with q
+    scaled by sqrt(64 / 48): output and gradients against plain autograd
+    at 48 unpadded (float32 sums in another order)."""
+    from repro_torch.models import attention as TMA
+    q, k, v = _qkv(dev, 2, 200, 4, 4, 48, torch.float32, seed=48)
+    g = torch.randn(q.shape, device=dev)
+    for window in (0, 64):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        n0 = smod.swa_attention.launches
+        out = TMA._kernel_attention(*ins, window=window)
+        assert smod.swa_attention.launches == n0 + 1
+        got = torch.autograd.grad(out, ins, g)
+        plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref = TMA._plain_attention(*plain, window=window)
+        want = torch.autograd.grad(ref, plain, g)
+        assert _rel(out.detach(), ref.detach()) <= 1e-5
+        assert all(_rel(a, b) <= 1e-5 for a, b in zip(got, want))
+
+
+def _family_state(arch, seed, **changes):
+    import dataclasses
+
+    from repro_torch.train import step as TS
+    cfg = dataclasses.replace(TC.reduced(TC.get(arch)), **changes)
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    return cfg, TS.init_state(cfg, gen, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b"])
+def test_reduced_family_train_step_on_the_card_matches_the_cpu(dev, arch):
+    """One train step of the reduced expert and MLA configs (float32) on the
+    card and on the CPU from one state and batch, under the gates of
+    ``test_reduced_train_step_on_the_card_matches_the_cpu``: two kernel
+    launches a layer, nll and aux, gradients, and the step's parameters
+    (at most 1e-4 of them more than lr / 100 apart, the others within 1e-3
+    of the update)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cfg, cpu = _family_state(arch, 1)
+    ocfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    card = TS.TrainState(_to(cpu.params, dev),
+                         adamw.init(_to(cpu.params, dev)))
+    start = [t.clone() for t in adamw.tree_leaves(cpu.params)]
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
+    tcfg = TS.TrainConfig()
+    n0 = smod.swa_attention.launches
+    g_card, m_card = TS.grads_of(cfg, tcfg, card.params,
+                                 SyntheticLM(data, dev).batch(0))
+    assert smod.swa_attention.launches == n0 + 2 * cfg.n_layers
+    g_cpu, m_cpu = TS.grads_of(cfg, tcfg, cpu.params,
+                               SyntheticLM(data, "cpu").batch(0))
+    for key in ("nll", "aux"):
+        assert abs(float(m_card[key]) - float(m_cpu[key])) \
+            <= 1e-5 * max(float(m_cpu[key]), 1.0)
+    for a, b in zip(adamw.tree_leaves(g_card), adamw.tree_leaves(g_cpu)):
+        assert _rel(a.cpu(), b) <= 1e-4
+    step = TS.make_train_step(cfg, ocfg, tcfg)
+    step(card, SyntheticLM(data, dev).batch(0))
+    step(cpu, SyntheticLM(data, "cpu").batch(0))
+    apart = total = 0
+    for p0, p_card, p_cpu in zip(start, adamw.tree_leaves(card.params),
+                                 adamw.tree_leaves(cpu.params)):
+        p_card = p_card.cpu()
+        near = (p_card - p_cpu).abs() <= ocfg.lr / 100
+        apart += int((~near).sum())
+        total += near.numel()
+        assert _rel(p_card[near] - p0[near], p_cpu[near] - p0[near]) <= 1e-3
+    assert apart <= 1e-4 * total
+
+
+def test_reduced_expert_step_repeats_bitwise_on_the_card(dev):
+    """The expert layer's backward on the capacity path (4224 tokens, pairs
+    dropped) takes no atomics that reorder sums: the gradients of one
+    state and batch are bitwise equal from one call to the next."""
+    from repro_torch.models import moe as TMOE
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as TS
+
+    cfg, cpu = _family_state("qwen2-moe-a2.7b", 2, capacity_factor=0.5)
+    params = _to(cpu.params, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (16, 264), generator=gen,
+                        device=dev)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    assert tok.numel() > TMOE.DROPLESS_TOKENS
+    first = TS.grads_of(cfg, TS.TrainConfig(), params, batch)
+    again = TS.grads_of(cfg, TS.TrainConfig(), params, batch)
+    assert all(torch.equal(a, b) for a, b in
+               zip(adamw.tree_leaves(first[0]), adamw.tree_leaves(again[0])))
+    assert all(torch.equal(first[1][k], again[1][k]) for k in first[1])
