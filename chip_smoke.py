@@ -518,6 +518,28 @@ WH_FIRST = (8, 1500, 4, 224)
 #: decode steps of phase 20's profiled decode
 WH_PROFILED_STEPS = 16
 
+#: phase 22's RG-LRU training: recurrentgemma-2b uncut (26 layers: eight
+#: rec/rec/attn units under remat and two remainder rec layers outside it;
+#: 3.550 B parameters, random bf16 weights drawn on the card), AdamW steps
+#: on one fixed SyntheticLM batch of batch x seq at train_4k's length, so
+#: the 2048-token window bites. Reckoned before the first run: bf16
+#: parameters and gradients 6.6 GiB each, float32 moments 26.4 GiB, float32
+#: logits 3.9 GiB a copy, about 1 GB of saved doubling scan a rec layer;
+#: 52-62 GiB in all
+TRAIN_REC = {"batch": 1, "seq": 4096, "steps": 3}
+#: phase 22's swa Function checks at recurrentgemma's width (10/1 heads of
+#: 256): (dtype, batch, sequence, window): its training shape, float32 at a
+#: shorter length with the window still biting, and a small window
+TRAIN_REC_SWA = (("bfloat16", 1, 4096, 2048), ("float32", 1, 2560, 2048),
+                 ("bfloat16", 2, 300, 64))
+#: the doubling scan's gradients on the card: (batch, sequence, width) of a
+#: training step's rec layer, float32, against a float64 sequential loop on
+#: the card (normwise; decays a = u^0.01, median 0.993, so the memory is
+#: long: on the CPU at width 64 the float32 scan reads 2.9e-7 against
+#: float64, 5.8e-8 at the model's initial decays)
+TRAIN_REC_SCAN = (1, 4096, 2560)
+GATE_SCAN_GRAD = 1e-6
+
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
     return float((a - b).norm() / max(float(b.norm()), 1e-30))
@@ -4459,6 +4481,84 @@ def phase20(torch, smi, gate, plain_cuda_calls, dev, timer, rates,
     return total
 
 
+def swa_pairs(s, window):
+    """(query, key) pairs in the causal band of one head."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def check_swa_function(torch, gate, tag, q, k, v, g, window=0,
+                       v_width=None):
+    """The swa autograd Function (``swa_op`` on tensors that need
+    gradients) against plain autograd of the plain version: dq, dk, dv
+    bitwise, one kernel launch for the forward, the forward within GATE_SWA
+    of the plain version in float32, and V's zero padding past ``v_width``
+    zero in the output."""
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.kernels.swa import ops as sops
+
+    n0 = smod.swa_attention.launches
+    out = sops.swa_op(q, k, v, window=window)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    n_fwd = smod.swa_attention.launches - n0
+    want = torch.autograd.grad(
+        smod.swa_attention_ref(q, k, v, window=window), (q, k, v), g)
+    with torch.no_grad():
+        ref32 = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                       window=window)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, w) for a, w in zip(got, want))
+    e = rel_err(out.detach(), ref32)
+    padded = v_width is not None and v_width < q.shape[-1]
+    gate(same and e <= GATE_SWA[str(q.dtype).split(".")[-1]] and n_fwd == 1
+         and not (padded and out[..., v_width:].any()),
+         f"swa Function {tag}: dq, dk, dv bitwise equal to plain "
+         f"autograd {same}; forward rel {e:.2e} against the plain "
+         f"version in float32; kernel launches {n_fwd}"
+         + ("; V's padding zero in the output" if padded else ""))
+
+
+def time_swa_training(torch, timer, bf16_flops, tag, q, k, v, g, window=0):
+    """The kernel forward, the plain-recompute backward, SDPA's forward
+    and backward (``is_causal``, or the band mask for a window), and the
+    bounds of a flash forward and backward (operations at BF16)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.swa import kernel as smod
+
+    def recompute():
+        torch.autograd.grad(smod.swa_attention_ref(q, k, v, window=window),
+                            (q, k, v), g)
+
+    def kernel_fwd():
+        with torch.no_grad():
+            smod.swa_attention(q, k, v, window=window)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                  for t in (q, k, v))
+    gt = g.transpose(1, 2)
+    b_, s_, h_, d_ = q.shape
+    mask = {"is_causal": True}
+    if window:
+        pos = torch.arange(s_, device=q.device)
+        mask = {"attn_mask": (pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window)}
+
+    def library():
+        torch.autograd.grad(Fn.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **mask), (qt, kt, vt), gt)
+    rec_ms = timer(recompute, 5)
+    fwd_ms = timer(kernel_fwd, 10)
+    lib_ms = timer(library, 10)
+    fwd_bound = 4 * d_ * swa_pairs(s_, window) * b_ * h_ / bf16_flops * 1e3
+    print(f"  swa training {tag}: kernel forward {fwd_ms:.4f} ms "
+          f"(bound {fwd_bound:.4f}, operations), backward by plain "
+          f"recompute {rec_ms:.4f} ms a layer, a flash backward's bound "
+          f"{2.5 * fwd_bound:.4f} ms (operations); sdpa "
+          + ("with the band mask " if window else "") + f"forward and "
+          f"backward {lib_ms:.4f} ms", flush=True)
+
+
 def training_profile(torch, label: str, fn, pieces=()):
     """One call of ``fn`` (a train step) under torch.profiler: prints the
     device's busy share and the shares of its device time in the plain
@@ -4595,7 +4695,6 @@ def phase21(torch, np, smi, gate, plain_cuda_calls, dev, timer,
     import repro_torch.configs as TC
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels.swa import kernel as smod
-    from repro_torch.kernels.swa import ops as sops
     from repro_torch.models import attention as TA
     from repro_torch.models import moe as TM
     from repro_torch.optim import adamw
@@ -4613,36 +4712,6 @@ def phase21(torch, np, smi, gate, plain_cuda_calls, dev, timer,
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # ---- the autograd Function at the new widths ------------------------
-    def time_training(tag, q, k, v, g):
-        """The kernel forward, the plain-recompute backward, SDPA's forward
-        and backward, and the bounds of a flash forward and backward."""
-        def recompute():
-            torch.autograd.grad(smod.swa_attention_ref(q, k, v), (q, k, v),
-                                g)
-
-        def kernel_fwd():
-            with torch.no_grad():
-                smod.swa_attention(q, k, v)
-        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
-                      for t in (q, k, v))
-        gt = g.transpose(1, 2)
-
-        def library():
-            torch.autograd.grad(Fn.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), (qt, kt, vt),
-                gt)
-        rec_ms = timer(recompute, 5)
-        fwd_ms = timer(kernel_fwd, 10)
-        lib_ms = timer(library, 10)
-        b_, s_, h_, d_ = q.shape
-        pairs = s_ * (s_ + 1) // 2
-        fwd_bound = 4 * d_ * pairs * b_ * h_ / bf16_flops * 1e3
-        print(f"  swa training {tag}: kernel forward {fwd_ms:.4f} ms "
-              f"(bound {fwd_bound:.4f}, operations), backward by plain "
-              f"recompute {rec_ms:.4f} ms a layer, a flash backward's bound "
-              f"{2.5 * fwd_bound:.4f} ms (operations); sdpa forward and "
-              f"backward {lib_ms:.4f} ms", flush=True)
-
     b, s_len, h, d, dv = TRAIN_SWA96
     cases = ((torch.bfloat16, (b, s_len, h, h, d), dv),
              (torch.float32, (b, TRAIN_SWA_F32[1], h, h, d), dv),
@@ -4653,29 +4722,13 @@ def phase21(torch, np, smi, gate, plain_cuda_calls, dev, timer,
         v = Fn.pad(randn((b_, s_, kh_, dv_), dtype),
                    (0, d_ - dv_)).requires_grad_(True)
         g = randn((b_, s_, h_, d_), dtype)
-        n0 = smod.swa_attention.launches
-        out = sops.swa_op(q, k, v)
-        got = torch.autograd.grad(out, (q, k, v), g)
-        n_fwd = smod.swa_attention.launches - n0
-        want = torch.autograd.grad(smod.swa_attention_ref(q, k, v),
-                                   (q, k, v), g)
-        with torch.no_grad():
-            ref32 = smod.swa_attention_ref(q.float(), k.float(), v.float())
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, w) for a, w in zip(got, want))
         name = str(dtype).split(".")[-1]
-        e = rel_err(out.detach(), ref32)
         tag = (f"b={b_} s={s_} h/kh={h_}/{kh_} d={d_}"
                + (f" (V padded from {dv_})" if dv_ < d_ else "") + f" {name}")
-        gate(same and e <= GATE_SWA[name] and n_fwd == 1
-             and not out[..., dv_:].any(),
-             f"swa Function {tag}: dq, dk, dv bitwise equal to plain "
-             f"autograd {same}; forward rel {e:.2e} against the plain "
-             f"version in float32; kernel launches {n_fwd}; V's padding "
-             f"zero in the output")
+        check_swa_function(torch, gate, tag, q, k, v, g, v_width=dv_)
         if dtype == torch.bfloat16:
-            time_training(tag, q, k, v, g)
-        del q, k, v, g, out, got, want, ref32
+            time_swa_training(torch, timer, bf16_flops, tag, q, k, v, g)
+        del q, k, v, g
         torch.cuda.empty_cache()
 
     b4, s4, h4 = TRAIN_PAD48
@@ -4852,6 +4905,213 @@ def phase21(torch, np, smi, gate, plain_cuda_calls, dev, timer,
                            patches=red.n_patches)
     print(f"phase 21: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
+
+
+def phase22(torch, np, smi, gate, plain_cuda_calls, dev, timer,
+            rates) -> int:
+    """Training of the RG-LRU stack on the card (recurrentgemma-2b): the swa
+    autograd Function at the model's width 256 and 10/1 heads
+    (TRAIN_REC_SWA: its training shape b = 1, s = 4096, window 2048 in
+    bf16, float32 at a shorter length, a small window) against plain
+    autograd (bitwise gradients, one forward launch), with the forward,
+    the plain-recompute backward, a flash backward's bound and SDPA with
+    the band mask timed at the training shape; the doubling scan's
+    gradients at TRAIN_REC_SCAN against a float64 sequential loop
+    (GATE_SCAN_GRAD) and its forward and backward timed beside their byte
+    bound; TRAIN_REC's steps at full width and depth (loss and nll
+    finite, nll falling, two swa launches an attention layer a step and
+    one plain recompute, step wall, tokens/s and peak memory above what
+    the phase found held, beside the step's bound); every ``lamb`` leaf
+    float32 with a finite, non-zero gradient; one step's gradients
+    repeated from one state bitwise; a profiled step (busy share, the
+    recompute's, the scan's and the AdamW update's shares); one sync step
+    of the reduced config (float32) on the card against the CPU under
+    phase 15's gates. Returns the swa launches of the trained steps."""
+    import repro_torch.configs as TC
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import ssm as TSSM
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as TS
+
+    bw, _, bf16_flops = rates
+    t_phase = time.perf_counter()
+    cfg = TC.get("recurrentgemma-2b")
+    arch = cfg.arch_id
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_attn = kinds.count("attn")
+    h, kh, d, w = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.window
+    print(f"phase 22: training {arch} at full width and depth "
+          f"({cfg.n_layers} layers: {cfg.n_units} units of "
+          f"{'/'.join(cfg.pattern)} under remat and {cfg.n_rem_layers} "
+          f"remainder layers outside it) ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2200)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- the autograd Function at recurrentgemma's width -----------------
+    for name, b_, s_, w_ in TRAIN_REC_SWA:
+        dtype = getattr(torch, name)
+        q = randn((b_, s_, h, d), dtype).requires_grad_(True)
+        k, v = (randn((b_, s_, kh, d), dtype).requires_grad_(True)
+                for _ in range(2))
+        g = randn((b_, s_, h, d), dtype)
+        tag = f"b={b_} s={s_} h/kh={h}/{kh} d={d} window={w_} {name}"
+        check_swa_function(torch, gate, tag, q, k, v, g, window=w_)
+        if (b_, s_, w_) == (TRAIN_REC["batch"], TRAIN_REC["seq"], w):
+            time_swa_training(torch, timer, bf16_flops, tag, q, k, v, g,
+                              window=w_)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+    # ---- the doubling scan's gradients ----------------------------------
+    b_, s_, c_ = TRAIN_REC_SCAN
+    a64 = torch.rand((b_, s_, c_), generator=gen, device=dev,
+                     dtype=torch.float64) ** 0.01
+    b64 = torch.randn((b_, s_, c_), generator=gen, device=dev,
+                      dtype=torch.float64) * torch.sqrt(1 - a64 ** 2)
+    g64 = torch.randn((b_, s_, c_), generator=gen, device=dev,
+                      dtype=torch.float64)
+
+    def loop(a, b):
+        hs, out = torch.zeros_like(b[:, 0]), []
+        for t in range(s_):
+            hs = a[:, t] * hs + b[:, t]
+            out.append(hs)
+        return torch.stack(out, 1)
+    ins = [t.clone().requires_grad_(True) for t in (a64, b64)]
+    want = torch.autograd.grad(loop(*ins), ins, g64)
+    ins = [t.float().requires_grad_(True) for t in (a64, b64)]
+    g32 = g64.float()
+    got = torch.autograd.grad(TSSM.linear_scan(*ins), ins, g32)
+    errs = [rel_err(x, y) for x, y in zip(got, want)]
+    scan_ms = timer(lambda: torch.autograd.grad(
+        TSSM.linear_scan(*ins), ins, g32), 5)
+    # a, b and the upstream gradient read once, h, da and db written once
+    scan_bound = 6 * ins[0].numel() * 4 / bw * 1e3
+    gate(max(errs) <= GATE_SCAN_GRAD,
+         f"doubling scan gradients b={b_} s={s_} width={c_} (float32) "
+         f"against a float64 sequential loop on the card: da rel "
+         f"{errs[0]:.2e}, db rel {errs[1]:.2e}; forward and backward "
+         f"{scan_ms:.4f} ms (byte bound {scan_bound:.4f} ms) ({smi})")
+    del a64, b64, g64, ins, g32, got, want
+    torch.cuda.empty_cache()
+
+    # ---- the train steps at full width and depth ------------------------
+    bsz, seq, n_steps = TRAIN_REC["batch"], TRAIN_REC["seq"], \
+        TRAIN_REC["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(22)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, mgen, dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    p_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state.params))
+    active = n_params - cfg.padded_vocab * cfg.d_model
+    tokens = bsz * seq
+    attn_flop = 3 * 2 * swa_pairs(seq, w) * bsz * h * (2 * d) * n_attn
+    bound_s = (6 * active * tokens + attn_flop) / bf16_flops
+    logits_gib = tokens * cfg.padded_vocab * 4 / 2**30
+    print(f"  {n_params / 1e9:.3f} B parameters ({active / 1e9:.3f} B used "
+          f"a token), drawn in {t_draw:.2f} s; reckoned: parameters and "
+          f"gradients {p_bytes / 2**30:.1f} GiB each, moments "
+          f"{8 * n_params / 2**30:.1f} GiB, float32 logits "
+          f"{logits_gib:.1f} GiB a copy; b={bsz} s={seq}, {n_steps} steps "
+          f"on one batch, lr {TRAIN_LR}", flush=True)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=n_steps)
+    tcfg = TS.TrainConfig()
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=bsz), dev).batch(0)
+    step = TS.make_train_step(cfg, ocfg, tcfg)
+    losses, walls, per_step, plain_per_step, retries = [], [], [], [], []
+
+    def alloc_retries():
+        # the caching allocator's frees of every cached block and retries
+        # after a failed device allocation
+        return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for _ in range(n_steps):
+        smod.swa_attention.launches = 0
+        plain_cuda_calls["n"] = 0
+        r0 = alloc_retries()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        retries.append(alloc_retries() - r0)
+        per_step.append(smod.swa_attention.launches)
+        plain_per_step.append(plain_cuda_calls["n"])
+        losses.append((float(metrics["nll"]), float(metrics["z_loss"])))
+    peak = torch.cuda.max_memory_allocated() - held
+    steady = statistics.median(walls[1:])
+    nll = [x[0] for x in losses]
+    print(f"    steps: loss " + ", ".join(f"{x + z:.4f}" for x, z in losses)
+          + ", nll " + ", ".join(f"{x:.4f}" for x in nll)
+          + f"; wall {', '.join(f'{t:.4f}' for t in walls)} s (median "
+          f"after the first {steady:.4f} s, {tokens / steady:.1f} tokens/s; "
+          f"bound {1e3 * bound_s:.1f} ms: 6 x {active / 1e9:.3f} B x "
+          f"{tokens} tokens and {attn_flop / 1e12:.2f} TFLOP of windowed "
+          f"attention at BF16, {steady / bound_s:.1f}x); peak "
+          f"{peak / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
+          f"allocator retries per step {retries} ({smi})", flush=True)
+    gate(all(np.isfinite(losses).ravel()) and nll[-1] < nll[0]
+         and all(n == 2 * n_attn for n in per_step)
+         and all(n == n_attn for n in plain_per_step),
+         f"{arch} train steps: loss and nll finite, last nll {nll[-1]:.4f} "
+         f"below the first {nll[0]:.4f}; swa launches per step {per_step} "
+         f"({2 * n_attn} expected: the forward and the remat recompute of "
+         f"{n_attn} attention layers); plain swa calls per step "
+         f"{plain_per_step} (the backward's recompute, one a layer)")
+
+    g1, m1 = TS.grads_of(cfg, tcfg, state.params, batch)
+    g2, m2 = TS.grads_of(cfg, tcfg, state.params, batch)
+    same = tree_equal(torch, g1, g2) and all(
+        torch.equal(m1[k], m2[k]) for k in m1)
+    del g2, m2
+    gate(same, f"{arch}: one step's gradients from one state and batch, "
+         f"twice: bitwise equal {same}")
+    # a unit slot's leaf stacks its units' rows: each row must move
+    grads = dict(tree_items(g1))
+    lamb = [(key, p, grads[key]) for key, p in tree_items(state.params)
+            if key.endswith("/lamb")]
+    ok = [p.dtype == torch.float32 and gl.dtype == torch.float32
+          and bool(torch.isfinite(gl).all())
+          and bool(gl.reshape(-1, gl.shape[-1]).any(-1).all())
+          for _, p, gl in lamb]
+    gate(len(lamb) == cfg.pattern.count("rec") + cfg.n_rem_layers
+         and all(ok),
+         f"{arch}: {len(lamb)} lamb leaves ({', '.join(k for k, _, _ in lamb)})"
+         f" float32, each layer's gradient finite and non-zero {all(ok)}; "
+         f"largest " + ", ".join(f"{float(gl.abs().max()):.3e}"
+                                for _, _, gl in lamb))
+    del g1, m1, grads, lamb
+    torch.cuda.empty_cache()
+
+    state, metrics = training_profile(
+        torch, f"{arch} step b={bsz} s={seq}", lambda: step(state, batch),
+        ((TSSM, "linear_scan", "rglru_scan"),
+         (adamw, "update", "adamw_update")))
+    del state, metrics, batch, step
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU (float32) -------
+    reduced_step_check(torch, gate, TC.reduced(cfg),
+                       f"reduced {arch} sync step", torch.Generator(), 2210,
+                       dev, tcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=10))
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sum(per_step)
 
 
 def _tree_to(tree, device):
@@ -5321,12 +5581,6 @@ def main() -> int:
         tb, tf = nbytes / bw * 1e3, nflop / rate * 1e3
         return (tb, "bytes") if tb >= tf else (tf, "operations")
 
-    def swa_pairs(s, window):
-        """(query, key) pairs in the causal band of one head."""
-        if not window or window >= s:
-            return s * (s + 1) // 2
-        return window * (window + 1) // 2 + (s - window) * window
-
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
@@ -5704,6 +5958,8 @@ def main() -> int:
                                time_swa)
     launches["swa"] += phase21(torch, np, smi, gate, plain_cuda_calls, dev,
                                timer, bf16_flops)
+    launches["swa"] += phase22(torch, np, smi, gate, plain_cuda_calls, dev,
+                               timer, (bw, flops, bf16_flops))
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

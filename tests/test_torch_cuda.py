@@ -1452,6 +1452,31 @@ def test_swa_function_at_width_96_equals_plain_autograd(dev, h, v_width,
     assert not out[..., v_width:].any()      # V's padding stays zero
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("window", [0, 64, 2048])
+def test_swa_function_at_the_recurrentgemma_width_equals_plain_autograd(
+        dev, window, dtype):
+    """recurrentgemma's training attention: width 256 (the mma.sync kernel
+    in bf16), 10 query heads on one KV head, 2100 tokens so its window of
+    2048 bites. One forward launch, and dq, dk, dv bit for bit those of
+    plain autograd with the window."""
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(dev, 1, 2100, 10, 1, 256, dtype, seed=2100 + window))
+    g = torch.randn(q.shape, device=dev).to(dtype)
+    n0 = smod.swa_attention.launches
+    out = swa_op(q, k, v, window=window)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert smod.swa_attention.launches == n0 + 1
+    want = torch.autograd.grad(smod.swa_attention_ref(q, k, v, window=window),
+                               (q, k, v), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with torch.no_grad():
+        ref = smod.swa_attention_ref(q.float(), k.float(), v.float(),
+                                     window=window)
+    assert _rel(out.detach(), ref) <= (1e-2 if dtype == torch.bfloat16
+                                       else 1e-5)
+
+
 def test_kernel_attention_padded_width_gradients_match_plain(dev):
     """The reduced MLA width 48 runs the kernel zero-padded to 64 with q
     scaled by sqrt(64 / 48): output and gradients against plain autograd
@@ -1482,14 +1507,16 @@ def _family_state(arch, seed, **changes):
     return cfg, TS.init_state(cfg, gen, "cpu")
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b"])
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "minicpm3-4b",
+                                  "recurrentgemma-2b"])
 def test_reduced_family_train_step_on_the_card_matches_the_cpu(dev, arch):
-    """One train step of the reduced expert and MLA configs (float32) on the
+    """One train step of the reduced expert, MLA and RG-LRU configs
+    (float32; recurrentgemma's 128 tokens pass its window of 64) on the
     card and on the CPU from one state and batch, under the gates of
     ``test_reduced_train_step_on_the_card_matches_the_cpu``: two kernel
-    launches a layer, nll and aux, gradients, and the step's parameters
-    (at most 1e-4 of them more than lr / 100 apart, the others within 1e-3
-    of the update)."""
+    launches an attention layer, nll and aux, gradients, and the step's
+    parameters (at most 1e-4 of them more than lr / 100 apart, the others
+    within 1e-3 of the update)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim import adamw
     from repro_torch.train import step as TS
@@ -1504,7 +1531,9 @@ def test_reduced_family_train_step_on_the_card_matches_the_cpu(dev, arch):
     n0 = smod.swa_attention.launches
     g_card, m_card = TS.grads_of(cfg, tcfg, card.params,
                                  SyntheticLM(data, dev).batch(0))
-    assert smod.swa_attention.launches == n0 + 2 * cfg.n_layers
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)].startswith("attn")
+                 for i in range(cfg.n_layers))
+    assert smod.swa_attention.launches == n0 + 2 * n_attn
     g_cpu, m_cpu = TS.grads_of(cfg, tcfg, cpu.params,
                                SyntheticLM(data, "cpu").batch(0))
     for key in ("nll", "aux"):
