@@ -199,7 +199,7 @@ Phases:
      chunks, float32, GATE_SCAN), timed beside its bound; generate at
      phase 8's shape twice (no swa launch, no plain attention on a CUDA
      tensor, bitwise equal tokens) and prefill + greedy decode steps at
-     both requests, the long one XL_LONG (an 8192-token prompt, 32 chunks
+     both requests, the long one XL_LONG (a 4096-token prompt, 16 chunks
      carried); prefill seconds, decode ms a step and peak memory beside
      the chunk scans', the sLSTM loop's and a decode step's bounds; the
      (C, n, m) and sLSTM states; prefill and teacher-forced decode against
@@ -248,6 +248,20 @@ Phases:
      dispatch's, the expert products' and the combine's shares); one sync
      step of each of the six reduced configs on the card against the CPU
      under phase 15's gates.
+ 22. training recurrentgemma-2b uncut (TRAIN_REC: b = 1 x 4096): the swa
+     Function at width 256 with a window, the doubling scan's gradients
+     against float64, the steps, float32 ``lamb`` gradients, a bitwise
+     repeat, a profiled step and the reduced config against the CPU.
+ 23. training xlstm-1.3b (TRAIN_XL: b = 1 x 4096, 16 chunks): the mLSTM
+     chunk scan's gradients at the model's heads and the sLSTM loop's at
+     its width against float64 on the card, timed beside their bounds;
+     two AdamW steps at full width, 24 of the 48 layers (nll falling, no
+     swa launch, step wall, tokens/s, peak memory, allocator retries,
+     float32 ``w_if``, ``skip`` and ``out_norm`` gradients finite and
+     non-zero in every layer); at one unit a bitwise repeat, the bf16
+     ``r_gates`` gradient against float32 and a profiled step (the chunk
+     scan's, the sLSTM loop's and AdamW's shares); the reduced config
+     against the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -481,14 +495,15 @@ GATE_TF32 = 1e-3
 #: the prefill kernel and the ring buffer of every attention layer wraps in
 #: decode; phase 8's request is the other
 RG_LONG = (1, 8192, 16)
-#: phase 19's long request for xlstm-1.3b (batch, prompt, new tokens): 32
-#: chunks of 256 carried through (C, n, m), 8192 sLSTM steps a layer;
-#: phase 8's request is the other
-XL_LONG = (1, 8192, 16)
+#: phase 19's long request for xlstm-1.3b (batch, prompt, new tokens): 16
+#: chunks of 256 carried through (C, n, m), 4096 sLSTM steps a layer;
+#: phase 8's request is the other. Cut from 8192 tokens when phase 23 took
+#: the script to 943 s with the kernels already built (PERF.md)
+XL_LONG = (1, 4096, 16)
 #: phase 19's teacher-forced check, gated in float32 (GATE_TF32) over this
 #: many layers at phase 8's request and at XL_LONG: full depth, and one
 #: unit (7 mLSTM, 1 sLSTM) at the long request, whose float32 prefill and
-#: forward over 8448 tokens would take about 30 s at full depth (the sLSTM
+#: forward at full depth took about 30 s over 8448 tokens (the sLSTM
 #: loop). In bf16 the prefill already differs from the forward over a
 #: longer sequence, the same arithmetic at another length, by 0.3
 #: normwise (an H100 80GB HBM3 at 700 W; PERF.md): the GEMMs round
@@ -539,6 +554,49 @@ TRAIN_REC_SWA = (("bfloat16", 1, 4096, 2048), ("float32", 1, 2560, 2048),
 #: float64, 5.8e-8 at the model's initial decays)
 TRAIN_REC_SCAN = (1, 4096, 2560)
 GATE_SCAN_GRAD = 1e-6
+#: phase 23's xLSTM training: xlstm-1.3b at full width (48 layers: six
+#: units of seven mLSTM and one sLSTM under remat; 3.682 B parameters,
+#: random bf16 weights drawn on the card), AdamW steps on one fixed SyntheticLM batch
+#: of batch x seq at train_4k's length (16 chunks of 256). Reckoned before
+#: the first run: bf16 parameters and gradients 6.9 GiB each, float32
+#: moments 27.4 GiB, float32 logits about 0.8 GiB a copy, and one unit's
+#: graph under remat (the chunk scan keeps C, 16 MiB a chunk and layer at
+#: b = 1, and its float32 q, k, v; the sLSTM keeps its 4096 cell steps) a
+#: few GiB: 50-55 GiB in all. At full depth a step took 76-95 s (the
+#: sLSTM loop is host-paced) and peaked 49.04-49.10 GiB above what was
+#: held (PERF.md), which took the script past 1000 s: the steps run three
+#: of the six units (24 layers, the 7:1 pattern kept, the width uncut)
+TRAIN_XL = {"batch": 1, "seq": 4096, "steps": 2, "layers": 24}
+#: the depth of phase 23's bitwise repeat and profiled step: one unit (a
+#: full-depth step launches over a million kernels)
+TRAIN_XL_UNIT = 8
+#: the mLSTM chunk scan's gradients on the card: (batch, heads, sequence,
+#: head width), the model's heads over four chunks, float32 (TF32 off),
+#: against the same recurrence in its parallel form in float64 (normwise
+#: per input). Forget gates log-sigmoid(N(5, 1)), near 1 as a trained
+#: model's (the xLSTM paper starts their bias at 3 to 6), so the carried
+#: (C, n, m) weighs in; at the model's initial gates (about 0.5) a chunk
+#: decays it by about exp(-177)
+TRAIN_XL_SCAN = (1, 4, 1024, 1024)
+#: the sLSTM position loop's gradients on the card: (batch, sequence,
+#: width) at the model's width, float32, against the cell run in float64
+TRAIN_XL_SLSTM = (1, 512, 2048)
+#: normwise, float32 against float64 (on a CPU at these shapes they read
+#: up to 1.8e-5 and 4.4e-7)
+GATE_XL_SCAN_GRAD, GATE_XL_SLSTM_GRAD = 1e-4, 1e-5
+#: the reduced xLSTM's step, card against CPU: its float32 gradients at
+#: initialisation sit 1e-4 to 1.5e-3 per leaf from a float64 run of the
+#: recurrences, whichever float32 implementation computes them (the
+#: reference on the CPU 1.9e-4 and 2.2e-4 on this phase's and the card
+#: test's states, 1.5e-3 on another draw; the port on the CPU 9.6e-5 and
+#: 4.6e-4): the backward grows about 300-fold from the head to the
+#: embedding there and carries the rounding with it, so phase 15's
+#: GATE_STATS and GATE_TRAIN_FLIPS do not hold between two float32 runs.
+#: Gradients within three times the largest distance (1.5e-3); after the
+#: step at most three times the largest share of coordinates that the
+#: reference's step and the port's set more than lr * TRAIN_APART apart on
+#: the CPU (2.6e-4)
+GATE_XL_TRAIN_GRAD, GATE_XL_TRAIN_FLIPS = 4.5e-3, 7.8e-4
 
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
@@ -2528,15 +2586,16 @@ def tree_copy(tree, device):
 
 
 def reduced_step_check(torch, gate, red, label, cgen, seed, dev, tcfg,
-                       ocfg_r, patches: int = 0):
+                       ocfg_r, patches: int = 0, grad_gate=GATE_STATS,
+                       flips_gate=GATE_TRAIN_FLIPS):
     """One synchronous train step of the reduced config ``red`` (float32)
     on the card and on the port's CPU path from one state (drawn on the
     CPU from ``cgen`` seeded with ``seed``) and one batch (SyntheticLM at
     TRAIN_REDUCED_SEQ, global batch 4, with ``patches`` random patch
     embeddings): nll (and aux) within GATE_TRAIN_LOSS, gradients within
-    GATE_STATS (per leaf, normwise), AdamW from the same state and the
+    ``grad_gate`` (per leaf, normwise), AdamW from the same state and the
     CPU's gradients within GATE_TRAIN_ADAM, and after the step at most
-    GATE_TRAIN_FLIPS of the parameters more than lr * TRAIN_APART apart,
+    ``flips_gate`` of the parameters more than lr * TRAIN_APART apart,
     the others within GATE_TRAIN_STEP of the update."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim import adamw
@@ -2575,8 +2634,8 @@ def reduced_step_check(torch, gate, red, label, cgen, seed, dev, tcfg,
     apart_by = ocfg_r.lr * TRAIN_APART
     apart, e_step = train_split(torch, on_card.params, on_cpu.params, start,
                                 apart_by)
-    gate(e_loss <= GATE_TRAIN_LOSS and e_grad <= GATE_STATS
-         and e_adam <= GATE_TRAIN_ADAM and apart <= GATE_TRAIN_FLIPS
+    gate(e_loss <= GATE_TRAIN_LOSS and e_grad <= grad_gate
+         and e_adam <= GATE_TRAIN_ADAM and apart <= flips_gate
          and e_step <= GATE_TRAIN_STEP,
          f"{label}, card against CPU: {' and '.join(keys)} rel "
          f"{e_loss:.2e}, gradients {e_grad:.2e} (largest per leaf, "
@@ -5114,6 +5173,344 @@ def phase22(torch, np, smi, gate, plain_cuda_calls, dev, timer,
     return sum(per_step)
 
 
+def mlstm_parallel64(torch, q, k, v, li, lf):
+    """The mLSTM over a whole sequence in its parallel form, in float64:
+    h_j = sum_k s_jk v_k / max(|sum_k s_jk|, exp(-m_j)) with s_jk =
+    (q_j . k_k / sqrt(d)) exp(D_jk - m_j), D_jk = b_j - b_k + li_k for k
+    <= j (b the inclusive cumulative sum of lf) and m_j = max_k D_jk. h
+    does not depend on the stabiliser m, so this is the chunk scan's h
+    with another one, and none of its chunking."""
+    q, k, v, li, lf = (t.double() for t in (q, k, v, li, lf))
+    s = q.shape[-2]
+    b = torch.cumsum(lf, dim=-1)
+    D = b[..., :, None] - b[..., None, :] + li[..., None, :]
+    future = ~torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    D = D.masked_fill(future, float("-inf"))
+    m = D.amax(dim=-1)
+    S = (q @ k.transpose(-1, -2)) / q.shape[-1] ** 0.5 \
+        * torch.exp(D - m[..., None])
+    den = torch.maximum(S.sum(dim=-1).abs(), torch.exp(-m))
+    return (S @ v) / den[..., None]
+
+
+def slstm_loop64(torch, zx, r_gates):
+    """The sLSTM cell run position by position in float64 from the zero
+    state (m at -1e30) on the input gates zx (B, S, 4d) -> h (B, S, d)."""
+    import torch.nn.functional as Fn
+
+    zx, r = zx.double(), r_gates.double()
+    b, d = zx.shape[0], r.shape[0]
+    c = n = h = torch.zeros((b, d), dtype=torch.float64, device=zx.device)
+    m = torch.full((b, d), -1e30, dtype=torch.float64, device=zx.device)
+    hs = []
+    for t in range(zx.shape[1]):
+        zi, zf, zz, zo = (zx[:, t] + h @ r).chunk(4, dim=-1)
+        lf = Fn.logsigmoid(zf)
+        m_new = torch.maximum(lf + m, zi)
+        ip, fp = torch.exp(zi - m_new), torch.exp(lf + m - m_new)
+        c, n, m = fp * c + ip * torch.tanh(zz), fp * n + ip, m_new
+        h = torch.sigmoid(zo) * c / torch.clamp(n, min=1e-6)
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def phase23(torch, np, smi, gate, plain_cuda_calls, dev, timer,
+            rates) -> None:
+    """Training of the xLSTM stack on the card (xlstm-1.3b): the mLSTM
+    chunk scan's gradients at the model's heads (TRAIN_XL_SCAN, four
+    chunks, float32) against the parallel form in float64
+    (GATE_XL_SCAN_GRAD), its forward and backward timed beside their FP32
+    bound; the sLSTM position loop's gradients at the model's width
+    (TRAIN_XL_SLSTM, float32) against the cell in float64
+    (GATE_XL_SLSTM_GRAD), its forward and backward timed in bf16 beside
+    its byte bounds; TRAIN_XL's steps at full width, three of the six
+    units (loss and nll finite, nll falling, no swa launch and no plain
+    attention call, step wall, tokens/s, peak memory above what the phase
+    found held and allocator retries a step, beside the step's bound);
+    every ``w_if``,
+    ``skip`` and ``out_norm`` leaf float32 with a finite, non-zero
+    gradient in every layer; at one unit's depth (TRAIN_XL_UNIT) one
+    step's gradients repeated bitwise from one state, the sLSTM layer's
+    ``r_gates`` gradient in bf16 against a float32 run of the layer on its
+    real input (reported), and a profiled step at XL_PROFILED tokens (busy
+    share, the chunk scan's, the sLSTM loop's and the AdamW update's
+    shares); one sync step of the reduced config (float32) on the card
+    against the CPU, its gradients and flips held to GATE_XL_TRAIN_GRAD
+    and GATE_XL_TRAIN_FLIPS."""
+    import dataclasses
+
+    import torch.nn.functional as Fn
+
+    import repro_torch.configs as TC
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import xlstm as TX
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as TS
+
+    bw, flops, bf16_flops = rates
+    t_phase = time.perf_counter()
+    cfg = TC.get("xlstm-1.3b")
+    arch = cfg.arch_id
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_m, n_s = kinds.count("m"), kinds.count("s")
+    du, nh, hd = TX._mlstm_dims(cfg)
+    L, d = TX.MLSTM_CHUNK, cfg.d_model
+    print(f"phase 23: training {arch} at full width ({cfg.n_layers} layers: "
+          f"{cfg.n_units} units of {'/'.join(cfg.pattern)} under remat; "
+          f"{n_m} mLSTM of width {du} in {nh} heads of {hd}, chunk {L}; "
+          f"{n_s} sLSTM of width {d}; the steps at {TRAIN_XL['layers']} "
+          f"layers) ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2300)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def scan_flop(b, h, s_len, w):
+        """The chunk scan's products: q k^T and S v within each chunk, q C
+        and k^T v across."""
+        return (s_len // L) * (4 * b * h * L * L * w + 4 * b * h * L * w * w)
+
+    # ---- the chunk scan's gradients ---------------------------------------
+    b_, h_, s_, w_ = TRAIN_XL_SCAN
+    ins = [randn((b_, h_, s_, w_)) for _ in range(3)]
+    ins += [randn((b_, h_, s_)), Fn.logsigmoid(randn((b_, h_, s_)) + 5.0)]
+    g = randn((b_, h_, s_, w_))
+    live = [t.clone().requires_grad_(True) for t in ins]
+    got = torch.autograd.grad(TX._mlstm_chunk_scan(*live)[0], live, g)
+    live64 = [t.double().requires_grad_(True) for t in ins]
+    want = torch.autograd.grad(mlstm_parallel64(torch, *live64), live64,
+                               g.double())
+    errs = [rel_err(x, y) for x, y in zip(got, want)]
+
+    def scan_grads():
+        torch.autograd.grad(TX._mlstm_chunk_scan(*live)[0], live, g)
+    scan_ms = timer(scan_grads, 5)
+    # the forward's products, then twice as many in the backward
+    scan_bound = 3 * scan_flop(b_, h_, s_, w_) / flops * 1e3
+    gate(max(errs) <= GATE_XL_SCAN_GRAD,
+         f"{arch} mLSTM chunk scan gradients b={b_} h={h_} s={s_} d={w_} "
+         f"({s_ // L} chunks, float32, TF32 off) against the parallel form "
+         f"in float64 on the card: rel dq {errs[0]:.2e}, dk {errs[1]:.2e}, "
+         f"dv {errs[2]:.2e}, dli {errs[3]:.2e}, dlf {errs[4]:.2e} (gate "
+         f"{GATE_XL_SCAN_GRAD:.0e}); forward and backward {scan_ms:.4f} ms "
+         f"(bound {scan_bound:.4f} ms, operations at FP32) ({smi})")
+    del ins, g, live, got, live64, want
+    torch.cuda.empty_cache()
+
+    # ---- the sLSTM loop's gradients --------------------------------------
+    b_, s_, w_ = TRAIN_XL_SLSTM
+    zx = randn((b_, s_, 4 * w_))
+    r = randn((w_, 4 * w_)) * (0.5 / w_ ** 0.5)
+    g = randn((b_, s_, w_))
+    live = [t.clone().requires_grad_(True) for t in (zx, r)]
+    got = torch.autograd.grad(
+        TX._slstm_scan({"r_gates": live[1]}, live[0])[0], live, g)
+    live64 = [t.double().requires_grad_(True) for t in (zx, r)]
+    want = torch.autograd.grad(slstm_loop64(torch, *live64), live64,
+                               g.double())
+    errs = [rel_err(x, y) for x, y in zip(got, want)]
+    live = [t.to(torch.bfloat16).requires_grad_(True) for t in (zx, r)]
+    g16 = g.to(torch.bfloat16)
+
+    def loop_grads():
+        torch.autograd.grad(
+            TX._slstm_scan({"r_gates": live[1]}, live[0])[0], live, g16)
+    loop_ms = timer(loop_grads, 2)
+    r_bytes = r.numel() * 2
+    # r_gates read once and its gradient written once (held in the 50 MB
+    # L2 across positions), or read from HBM by every position's forward
+    # and backward
+    once = 2 * r_bytes / bw * 1e3
+    per_pos = 2 * s_ * r_bytes / bw * 1e3
+    gate(max(errs) <= GATE_XL_SLSTM_GRAD,
+         f"{arch} sLSTM loop gradients b={b_} s={s_} d={w_} (float32) "
+         f"against the cell in float64 on the card: rel dzx {errs[0]:.2e}, "
+         f"dr_gates {errs[1]:.2e} (gate {GATE_XL_SLSTM_GRAD:.0e}); bf16 "
+         f"forward and backward {loop_ms:.4f} ms = "
+         f"{loop_ms / s_:.4f} ms a position; bounds (bytes): r_gates "
+         f"({r_bytes / 1e6:.1f} MB bf16) read once and its gradient written "
+         f"once, held in the L2 {once:.4f} ms; read from HBM by each "
+         f"position's forward and backward {per_pos:.4f} ms "
+         f"({per_pos / s_:.4f} ms a position) ({smi})")
+    del zx, r, g, g16, live, got, live64, want
+    torch.cuda.empty_cache()
+
+    # ---- the train steps at full width, TRAIN_XL's depth ---------------
+    bsz, seq, n_steps = TRAIN_XL["batch"], TRAIN_XL["seq"], TRAIN_XL["steps"]
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_XL["layers"])
+    n_m = cut.n_units * cut.pattern.count("m")
+    torch.cuda.reset_peak_memory_stats()
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(23)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = TS.init_state(cut, mgen, dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    p_bytes = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state.params))
+    active = n_params - cfg.padded_vocab * cfg.d_model
+    tokens = bsz * seq
+    # the products at BF16 and the float32 chunk scans (forward, remat
+    # recompute and a backward of twice the forward's) at FP32
+    chunk_flop = 4 * n_m * scan_flop(bsz, nh, seq, hd)
+    bound_s = 6 * active * tokens / bf16_flops + chunk_flop / flops
+    logits_gib = tokens * cfg.padded_vocab * 4 / 2**30
+    print(f"  {cut.n_layers} layers ({cut.n_units} units): "
+          f"{n_params / 1e9:.3f} B parameters ({active / 1e9:.3f} B used a "
+          f"token), drawn in "
+          f"{t_draw:.2f} s; reckoned: parameters and gradients "
+          f"{p_bytes / 2**30:.1f} GiB each, moments "
+          f"{8 * n_params / 2**30:.1f} GiB, float32 logits "
+          f"{logits_gib:.1f} GiB a copy; b={bsz} s={seq} ({seq // L} "
+          f"chunks), {n_steps} steps on one batch, lr {TRAIN_LR}",
+          flush=True)
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=n_steps)
+    tcfg = TS.TrainConfig()
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=bsz), dev).batch(0)
+    step = TS.make_train_step(cut, ocfg, tcfg)
+    kept = ("/w_if", "/skip", "/out_norm")
+    update, seen = adamw.update, {}
+
+    def recorded(ocfg_, grads, opt, params):
+        # the step's gradients of the float32 leaves, as the update gets
+        # them: type, finite, and non-zero in every layer of a stacked leaf
+        for (key, p), (_, gl) in zip(tree_items(params), tree_items(grads)):
+            if key.endswith(kept):
+                rows = gl.reshape(gl.shape[0], -1) if key.startswith(
+                    "/units") else gl.reshape(1, -1)
+                seen[key] = (p.dtype, gl.dtype,
+                             bool(torch.isfinite(gl).all()),
+                             bool(rows.any(-1).all()),
+                             float(gl.abs().max()))
+        return update(ocfg_, grads, opt, params)
+    losses, walls, swa, plain, retries = [], [], [], [], []
+
+    def alloc_retries():
+        return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    adamw.update = recorded
+    try:
+        for _ in range(n_steps):
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            r0 = alloc_retries()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            retries.append(alloc_retries() - r0)
+            swa.append(smod.swa_attention.launches)
+            plain.append(plain_cuda_calls["n"])
+            losses.append((float(metrics["nll"]), float(metrics["z_loss"])))
+    finally:
+        adamw.update = update
+    peak = torch.cuda.max_memory_allocated() - held
+    nll = [x[0] for x in losses]
+    print(f"    steps: loss " + ", ".join(f"{x + z:.4f}" for x, z in losses)
+          + ", nll " + ", ".join(f"{x:.4f}" for x in nll)
+          + f"; wall {', '.join(f'{t:.4f}' for t in walls)} s (last "
+          f"{tokens / walls[-1]:.1f} tokens/s; bound {1e3 * bound_s:.1f} "
+          f"ms: 6 x {active / 1e9:.3f} B x {tokens} tokens at BF16 and "
+          f"{chunk_flop / 1e12:.2f} TFLOP of chunk scans at FP32, "
+          f"{walls[-1] / bound_s:.1f}x); peak {peak / 2**30:.2f} GiB above "
+          f"the {held / 2**30:.2f} GiB held, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
+          f"allocator retries per step {retries} ({smi})", flush=True)
+    gate(all(np.isfinite(losses).ravel()) and nll[-1] < nll[0]
+         and not any(swa) and not any(plain),
+         f"{arch} at {cut.n_layers} layers, train steps: loss and nll "
+         f"finite, last nll {nll[-1]:.4f} below the first {nll[0]:.4f}; "
+         f"swa launches per step {swa}, plain attention calls on CUDA "
+         f"tensors {plain} (no attention layer)")
+    ok = [pt == torch.float32 and gt == torch.float32 and fin and nonzero
+          for pt, gt, fin, nonzero, _ in seen.values()]
+    # three such leaves an mLSTM slot, one an sLSTM slot (no remainder)
+    gate(len(seen) == sum({"m": 3, "s": 1}[k] for k in cfg.pattern)
+         and all(ok),
+         f"{arch}: {len(seen)} w_if/skip/out_norm leaves float32, each "
+         f"layer's gradient in the last step finite and non-zero "
+         f"{all(ok)}; largest " + ", ".join(
+             f"{key.split('/', 3)[-1]} {v[-1]:.2e}"
+             for key, v in list(seen.items())[:4]) + ", ...")
+    del state, metrics, batch, step, seen
+    torch.cuda.empty_cache()
+
+    # ---- one unit: a bitwise repeat, bf16 r_gates, a profiled step -------
+    c8 = dataclasses.replace(cfg, n_layers=TRAIN_XL_UNIT)
+    mgen.manual_seed(2308)
+    state = TS.init_state(c8, mgen, dev)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=bsz), dev).batch(0)
+    g1, m1 = TS.grads_of(c8, tcfg, state.params, batch)
+    g2, m2 = TS.grads_of(c8, tcfg, state.params, batch)
+    same = tree_equal(torch, g1, g2) and all(
+        torch.equal(m1[k], m2[k]) for k in m1)
+    del g1, g2, m1, m2
+    gate(same, f"{arch} at {TRAIN_XL_UNIT} layers: one step's gradients "
+         f"from one state and batch, twice: bitwise equal {same}")
+
+    # the sLSTM layer on its real input in this forward: the r_gates
+    # gradient in bf16 (autograd sums every position's share in the
+    # leaf's type, as the reference's scan does) against float32
+    captured, apply = [], TX.slstm_apply
+
+    def capture(cfg_, p, x, **kw):
+        if not captured:
+            captured.append((p, x.detach().clone()))
+        return apply(cfg_, p, x, **kw)
+    TX.slstm_apply = capture
+    try:
+        with torch.no_grad():
+            TS.make_loss_fn(c8, tcfg)(state.params, batch)
+    finally:
+        TX.slstm_apply = apply
+    p16, x16 = captured[0]
+    gy = randn(x16.shape, torch.bfloat16)
+    r_grads = []
+    for dtype in (torch.bfloat16, torch.float32):
+        p = {k: t.to(dtype) for k, t in p16.items()}
+        p["r_gates"] = p["r_gates"].clone().requires_grad_(True)
+        out = TX.slstm_apply(c8, p, x16.to(dtype))
+        r_grads.append(torch.autograd.grad(out, p["r_gates"],
+                                           gy.to(dtype))[0])
+    print(f"  sLSTM r_gates gradient over {seq} positions in bf16 (type "
+          f"{r_grads[0].dtype}) against a float32 run of the layer on its "
+          f"input in this step: rel {rel_err(*r_grads):.3e} (reported, not "
+          f"gated) ({smi})", flush=True)
+    del captured, p16, x16, gy, r_grads, p, out
+    # the profiled step at XL_PROFILED tokens: the chunk scans' work and
+    # the sLSTM steps both grow linearly in s, and a step of 4096 tokens
+    # traced 2.08 M events that took 74 s to read back
+    batch = {k: v[:, :XL_PROFILED] for k, v in batch.items()}
+    step = TS.make_train_step(c8, ocfg, tcfg)
+    state, metrics = training_profile(
+        torch, f"{arch} at {TRAIN_XL_UNIT} layers, step b={bsz} "
+        f"s={XL_PROFILED}", lambda: step(state, batch),
+        ((TX, "_mlstm_chunk_scan", "mlstm_chunk_scan"),
+         (TX, "_slstm_scan", "slstm_loop"),
+         (adamw, "update", "adamw_update")))
+    del state, metrics, batch, step
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU (float32) -------
+    reduced_step_check(torch, gate, TC.reduced(cfg),
+                       f"reduced {arch} sync step", torch.Generator(), 2310,
+                       dev, tcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=10),
+                       grad_gate=GATE_XL_TRAIN_GRAD,
+                       flips_gate=GATE_XL_TRAIN_FLIPS)
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def _tree_to(tree, device):
     return {k: (_tree_to(v, device) if isinstance(v, dict) else v.to(device))
             for k, v in tree.items()}
@@ -5960,6 +6357,8 @@ def main() -> int:
                                timer, bf16_flops)
     launches["swa"] += phase22(torch, np, smi, gate, plain_cuda_calls, dev,
                                timer, (bw, flops, bf16_flops))
+    phase23(torch, np, smi, gate, plain_cuda_calls, dev, timer,
+            (bw, flops, bf16_flops))
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",
