@@ -262,6 +262,16 @@ Phases:
      ``r_gates`` gradient against float32 and a profiled step (the chunk
      scan's, the sLSTM loop's and AdamW's shares); the reduced config
      against the CPU.
+ 24. training whisper-tiny uncut (TRAIN_WH: b = 8 x 4096 tokens over 1500
+     frames): the swa Function at width 64, 6/6 heads; the non-causal
+     attention's gradients (the encoder's and the cross-attention's
+     shapes) against float64, timed beside their bound; three AdamW steps
+     (nll falling, swa launches and plain recomputes a step, non-causal
+     calls a step, step wall, tokens/s, peak memory, allocator retries);
+     every gradient finite, every row of both position tables with a
+     gradient; a bitwise repeat; a profiled step (the encoder's, the
+     non-causal attention's and AdamW's shares); the reduced config with
+     frames against the CPU.
 
 Samples of phases 3-10 are drawn here, seeded, by a chromatic Gibbs sweep
 written with neighbour lists in torch on the card; true parameters come
@@ -597,6 +607,34 @@ GATE_XL_SCAN_GRAD, GATE_XL_SLSTM_GRAD = 1e-4, 1e-5
 #: reference's step and the port's set more than lr * TRAIN_APART apart on
 #: the CPU (2.6e-4)
 GATE_XL_TRAIN_GRAD, GATE_XL_TRAIN_FLIPS = 4.5e-3, 7.8e-4
+
+#: phase 24's whisper training: whisper-tiny uncut (4 encoder and 4 decoder
+#: layers, d 384, 6/6 heads of 64; about 58.6 M parameters, of which the
+#: untied head and the embedding are 20.0 M each; random bf16 weights and
+#: frame embeddings drawn on the card), AdamW steps on one fixed
+#: SyntheticLM batch of batch x seq decoder tokens at train_4k's length
+#: (every row of the decoder's 4096-row position table) over one 30-second
+#: window's frames, phase 20's batch. Reckoned before the first run:
+#: parameters, gradients and moments under 1 GiB; float32 logits 6.8 GB a
+#: copy at 8 x 4096 x 51968, two or three held by the cross-entropy; one
+#: decoder layer's plain recompute holds (8, 6, 4096, 4096) float32 scores,
+#: 3.2 GB a copy; the encoder runs outside remat, so its four layers' (8,
+#: 6, 1500, 1500) float32 softmax outputs stay live (0.4 GB each): 20-30
+#: GiB in all (measured: 35.90-35.96 GiB, PERF.md). The step's bound,
+#: about 9 ms: 6.3 TFLOP of products and 2.5 TFLOP of attention (causal
+#: self, cross, encoder) at BF16
+TRAIN_WH = {"batch": 8, "seq": 4096, "frames": 1500, "steps": 3}
+#: phase 24's swa Function checks at whisper's width (6/6 heads of 64,
+#: causal): (dtype, batch, sequence): the training shape, and float32 at a
+#: shorter length
+TRAIN_WH_SWA = (("bfloat16", 8, 4096), ("float32", 2, 1024))
+#: phase 24's non-causal attention (``_full_attention``, float32, TF32 off)
+#: against the same attention in float64 on the card: (batch, queries,
+#: keys) of the encoder's self-attention and of the cross-attention at
+#: TRAIN_WH's shape, normwise per input (on a CPU at b = 1 they read 4.5e-7
+#: to 1.1e-6)
+TRAIN_WH_FULL = ((8, 1500, 1500), (8, 4096, 1500))
+GATE_FULL_GRAD = 1e-5
 
 def rel_err(a, b) -> float:
     a, b = a.double(), b.double()
@@ -2587,12 +2625,13 @@ def tree_copy(tree, device):
 
 def reduced_step_check(torch, gate, red, label, cgen, seed, dev, tcfg,
                        ocfg_r, patches: int = 0, grad_gate=GATE_STATS,
-                       flips_gate=GATE_TRAIN_FLIPS):
+                       flips_gate=GATE_TRAIN_FLIPS, frames: int = 0):
     """One synchronous train step of the reduced config ``red`` (float32)
     on the card and on the port's CPU path from one state (drawn on the
     CPU from ``cgen`` seeded with ``seed``) and one batch (SyntheticLM at
     TRAIN_REDUCED_SEQ, global batch 4, with ``patches`` random patch
-    embeddings): nll (and aux) within GATE_TRAIN_LOSS, gradients within
+    embeddings and ``frames`` random frame embeddings, drawn from
+    ``cgen``): nll (and aux) within GATE_TRAIN_LOSS, gradients within
     ``grad_gate`` (per leaf, normwise), AdamW from the same state and the
     CPU's gradients within GATE_TRAIN_ADAM, and after the step at most
     ``flips_gate`` of the parameters more than lr * TRAIN_APART apart,
@@ -2613,6 +2652,9 @@ def reduced_step_check(torch, gate, red, label, cgen, seed, dev, tcfg,
     if patches:
         b_cpu["patch_embeds"] = torch.randn(
             (4, patches, red.d_model), generator=cgen)
+    if frames:
+        b_cpu["enc_frames"] = torch.randn(
+            (4, frames, red.d_model), generator=cgen)
     b_card = tree_copy(b_cpu, dev)
     g_cpu, m_cpu = TS.grads_of(red, tcfg, on_cpu.params, b_cpu)
     g_card, m_card = TS.grads_of(red, tcfg, on_card.params, b_card)
@@ -4633,7 +4675,10 @@ def training_profile(torch, label: str, fn, pieces=()):
     first output opens it when the gradient reaches that output, one on the
     first input that needs a gradient closes it when the gradient leaves.
     The engine runs the nodes made between the two, the piece's own, in
-    between (it takes the ready node made last first)."""
+    between (it takes the ready node made last first). A piece may carry a
+    fourth element, ``closes_at(args, wrap) -> args``, which applies
+    ``wrap`` to the input whose gradient closes the range instead (the
+    encoder's position table: its frames take no gradient)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from repro_torch.kernels.swa import ops as sops
@@ -4663,19 +4708,28 @@ def training_profile(torch, label: str, fn, pieces=()):
                 ctx.stack.pop().__exit__(None, None, None)
             return g, None
 
-    def marked(plain, name):
+    def first_input(args, wrap):
+        i = next((j for j, a in enumerate(args)
+                  if isinstance(a, torch.Tensor) and a.requires_grad), None)
+        if i is not None:
+            args[i] = wrap(args[i])
+        return args
+
+    def marked(plain, name, closes_at=first_input):
         stack = []
 
         def call(*args):
             with record_function(name):
+                wrapped = []
+
+                def wrap(t):
+                    wrapped.append(t)
+                    return Closes.apply(t, stack)
                 args = list(args)
-                i = next((j for j, a in enumerate(args)
-                          if isinstance(a, torch.Tensor) and a.requires_grad
-                          and torch.is_grad_enabled()), None)
-                if i is not None:
-                    args[i] = Closes.apply(args[i], stack)
+                if torch.is_grad_enabled():
+                    args = closes_at(args, wrap)
                 out = plain(*args)
-                if i is not None:
+                if wrapped:
                     if isinstance(out, tuple):
                         out = (Opens.apply(out[0], name, stack),) + out[1:]
                     else:
@@ -4684,16 +4738,16 @@ def training_profile(torch, label: str, fn, pieces=()):
         return call
 
     recompute = "swa_backward_recompute"
-    names = [recompute] + [n for _, _, n in pieces]
-    plain = [getattr(m, a) for m, a, _ in pieces]
+    names = [recompute] + [piece[2] for piece in pieces]
+    plain = [getattr(piece[0], piece[1]) for piece in pieces]
     backward = sops.SwaFunction.backward
 
     def traced(ctx, g):
         with record_function(recompute):
             return backward(ctx, g)
     sops.SwaFunction.backward = staticmethod(traced)
-    for (m, a, n), f in zip(pieces, plain):
-        setattr(m, a, marked(f, n))
+    for piece, f in zip(pieces, plain):
+        setattr(piece[0], piece[1], marked(f, *piece[2:]))
     t_all = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -4705,8 +4759,8 @@ def training_profile(torch, label: str, fn, pieces=()):
             wall = time.perf_counter() - t0
     finally:
         sops.SwaFunction.backward = backward
-        for (m, a, _), f in zip(pieces, plain):
-            setattr(m, a, f)
+        for piece, f in zip(pieces, plain):
+            setattr(piece[0], piece[1], f)
     busy, kernel_ns, marked_ns, by_name, n_events = range_shares(
         torch, prof, names)
     shares = [f"{n} {marked_ns[n][0] / 1e6:.1f} ms over {marked_ns[n][1]} "
@@ -5509,6 +5563,280 @@ def phase23(torch, np, smi, gate, plain_cuda_calls, dev, timer,
                        grad_gate=GATE_XL_TRAIN_GRAD,
                        flips_gate=GATE_XL_TRAIN_FLIPS)
     print(f"phase 23: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def full_attention64(torch, q, k, v):
+    """Unmasked attention over materialised scores in float64 throughout:
+    ``_full_attention``'s math without its float32 softmax and casts."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[3] ** 0.5
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(scores, -1), v)
+
+
+def phase24(torch, np, smi, gate, plain_cuda_calls, dev, timer,
+            rates) -> int:
+    """Training of whisper-tiny on the card at full width and depth: the swa
+    autograd Function at the decoder's width (TRAIN_WH_SWA: 6/6 heads of
+    64, its training shape b = 8 x 4096 in bf16 and float32 at a shorter
+    length) against plain autograd (bitwise gradients, one forward
+    launch), with the forward, the plain-recompute backward, a flash
+    backward's bound and SDPA timed at the training shape; the non-causal
+    attention's gradients (``_full_attention``, TRAIN_WH_FULL: the
+    encoder's and the cross-attention's shapes, float32) against float64
+    on the card (GATE_FULL_GRAD), the cross shape's forward and backward
+    timed in bf16 beside its bound and SDPA; TRAIN_WH's steps (loss and
+    nll finite, nll falling, two swa launches a decoder layer a step and
+    one plain recompute, the non-causal calls a step: the encoder's and
+    the cross-attention's forward and the cross-attention's remat
+    recompute; step wall, decoder tokens/s, peak memory above what the
+    phase found held and allocator retries, beside the step's bound);
+    every gradient finite and every row of both position tables with a
+    non-zero gradient; one step's gradients repeated from one state
+    bitwise; a profiled step (busy share, the recompute's, the encoder's,
+    the non-causal attention's and the AdamW update's shares); one sync
+    step of the reduced config with frames (float32) on the card against
+    the CPU under phase 15's gates. Returns the swa launches of the
+    trained steps."""
+    import torch.nn.functional as Fn
+
+    import repro_torch.configs as TC
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels.swa import kernel as smod
+    from repro_torch.models import attention as TA
+    from repro_torch.models import transformer as TT
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.train import step as TS
+
+    bw, _, bf16_flops = rates
+    t_phase = time.perf_counter()
+    cfg = TC.get("whisper-tiny")
+    arch = cfg.arch_id
+    L, Le = cfg.n_layers, cfg.n_enc_layers
+    h, kh, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    bsz, seq, n_frames, n_steps = (TRAIN_WH[k] for k in
+                                   ("batch", "seq", "frames", "steps"))
+    print(f"phase 24: training {arch} at full width and depth ({Le} encoder "
+          f"layers outside remat, {L} decoder units of "
+          f"{'/'.join(cfg.pattern)} under remat; d={d}, {h}/{kh} heads of "
+          f"{hd}, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}) "
+          f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2400)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # ---- the autograd Function at whisper's width -----------------------
+    for name, b_, s_ in TRAIN_WH_SWA:
+        dtype = getattr(torch, name)
+        q = randn((b_, s_, h, hd), dtype).requires_grad_(True)
+        k, v = (randn((b_, s_, kh, hd), dtype).requires_grad_(True)
+                for _ in range(2))
+        g = randn((b_, s_, h, hd), dtype)
+        tag = f"b={b_} s={s_} h/kh={h}/{kh} d={hd} causal {name}"
+        check_swa_function(torch, gate, tag, q, k, v, g)
+        if (b_, s_, dtype) == (bsz, seq, torch.bfloat16):
+            time_swa_training(torch, timer, bf16_flops, tag, q, k, v, g)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+    # ---- the non-causal attention's backward against float64 ------------
+    for b_, sq, sk in TRAIN_WH_FULL:
+        q = randn((b_, sq, h, hd))
+        k, v = (randn((b_, sk, h, hd)) for _ in range(2))
+        g = randn((b_, sq, h, hd))
+        live = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        got = torch.autograd.grad(TA._full_attention(*live), live, g)
+        live64 = [t.double().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(full_attention64(torch, *live64), live64,
+                                   g.double())
+        errs = [rel_err(x, y) for x, y in zip(got, want)]
+        del live, got, live64, want
+        what = "the encoder's" if sq == sk else "the cross-attention's"
+        line = (f"{arch} non-causal attention gradients at {what} shape "
+                f"b={b_} queries={sq} keys={sk} h={h} d={hd} (float32, TF32 "
+                f"off) against float64 on the card: rel dq {errs[0]:.2e}, "
+                f"dk {errs[1]:.2e}, dv {errs[2]:.2e} (gate "
+                f"{GATE_FULL_GRAD:.0e})")
+        if (sq, sk) == (seq, n_frames):
+            q, k, v = (t.to(torch.bfloat16).requires_grad_(True)
+                       for t in (q, k, v))
+            g = g.to(torch.bfloat16)
+            qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_(True)
+                          for t in (q, k, v))
+            gt = g.transpose(1, 2)
+
+            def plain():
+                torch.autograd.grad(TA._full_attention(q, k, v), (q, k, v),
+                                    g)
+
+            def library():
+                torch.autograd.grad(Fn.scaled_dot_product_attention(
+                    qt, kt, vt), (qt, kt, vt), gt)
+            full_ms = timer(plain, 5)
+            lib_ms = timer(library, 10)
+            elems = b_ * h * sq * sk
+            # the forward's two products, the backward's four
+            flop = 12 * elems * hd
+            # the float32 scores written and read once in the forward, the
+            # probabilities read and the scores' gradient written once in
+            # the backward
+            by = 4 * 4 * elems
+            t_fl, t_by = flop / bf16_flops * 1e3, by / bw * 1e3
+            line += (f"; bf16 forward and backward {full_ms:.4f} ms (bound "
+                     f"{max(t_fl, t_by):.4f} ms by "
+                     f"{'bytes' if t_by >= t_fl else 'operations'}: "
+                     f"{flop / 1e9:.1f} GFLOP at BF16 {t_fl:.4f} ms, the "
+                     f"float32 scores {by / 1e9:.2f} GB moved "
+                     f"{t_by:.4f} ms); sdpa forward and backward "
+                     f"{lib_ms:.4f} ms ({smi})")
+            del qt, kt, vt, gt
+        gate(max(errs) <= GATE_FULL_GRAD, line)
+        del q, k, v, g
+        torch.cuda.empty_cache()
+
+    # ---- the train steps at full width and depth ------------------------
+    torch.cuda.reset_peak_memory_stats()
+    mgen = torch.Generator(device=dev)
+    mgen.manual_seed(24)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = TS.init_state(cfg, mgen, dev)
+    torch.cuda.synchronize()
+    t_draw = time.perf_counter() - t0
+    p = state.params
+
+    def count(tree):
+        return sum(t.numel() for t in tree_leaves(tree))
+    n_params = count(p)
+    # the cross-attention's K and V project the frames, not the tokens
+    cross_kv = sum(p["units"][f"b{s}"]["cross"][w].numel()
+                   for s in range(len(cfg.pattern)) for w in ("wk", "wv"))
+    per_token = count(p["units"]) - cross_kv + p["head"].numel()
+    per_frame = count(p["encoder"]["layers"]) + cross_kv
+    tokens, frame_rows = bsz * seq, bsz * n_frames
+    prod_flop = 6 * per_token * tokens + 6 * per_frame * frame_rows
+    # forward and backward (three times the forward's two products)
+    attn_flop = 3 * 4 * hd * bsz * h * (
+        L * swa_pairs(seq, 0) + L * seq * n_frames + Le * n_frames ** 2)
+    bound_s = (prod_flop + attn_flop) / bf16_flops
+    print(f"  {n_params / 1e6:.3f} M parameters (embedding "
+          f"{p['embed'].numel() / 1e6:.3f} M, head "
+          f"{p['head'].numel() / 1e6:.3f} M; {per_token / 1e6:.3f} M used a "
+          f"token, {per_frame / 1e6:.3f} M a frame), drawn in "
+          f"{t_draw:.2f} s; b={bsz} s={seq} over {n_frames} frames, "
+          f"{n_steps} steps on one batch, lr {TRAIN_LR}; float32 logits "
+          f"{tokens * cfg.padded_vocab * 4 / 1e9:.1f} GB a copy", flush=True)
+    del p
+    ocfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                             total_steps=n_steps)
+    tcfg = TS.TrainConfig()
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=bsz), dev).batch(0)
+    batch["enc_frames"] = randn((bsz, n_frames, d), cfg.torch_dtype)
+    step = TS.make_train_step(cfg, ocfg, tcfg)
+    losses, walls, swa, plain, full, retries = [], [], [], [], [], []
+
+    def alloc_retries():
+        return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    with counting_calls(TA, "_full_attention") as calls:
+        for _ in range(n_steps):
+            smod.swa_attention.launches = 0
+            plain_cuda_calls["n"] = 0
+            calls["n"] = 0
+            r0 = alloc_retries()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            retries.append(alloc_retries() - r0)
+            swa.append(smod.swa_attention.launches)
+            plain.append(plain_cuda_calls["n"])
+            full.append(calls["n"])
+            losses.append((float(metrics["nll"]), float(metrics["z_loss"])))
+    peak = torch.cuda.max_memory_allocated() - held
+    steady = statistics.median(walls[1:])
+    nll = [x[0] for x in losses]
+    print(f"    steps: loss " + ", ".join(f"{x + z:.4f}" for x, z in losses)
+          + ", nll " + ", ".join(f"{x:.4f}" for x in nll)
+          + f"; wall {', '.join(f'{t:.4f}' for t in walls)} s (median "
+          f"after the first {steady:.4f} s, {tokens / steady:.1f} decoder "
+          f"tokens/s; bound {1e3 * bound_s:.2f} ms: 6 x "
+          f"{per_token / 1e6:.3f} M x {tokens} tokens and 6 x "
+          f"{per_frame / 1e6:.3f} M x {frame_rows} frames, "
+          f"{prod_flop / 1e12:.2f} TFLOP, and {attn_flop / 1e12:.2f} TFLOP "
+          f"of causal, cross and encoder attention at BF16, "
+          f"{steady / bound_s:.1f}x); peak {peak / 2**30:.2f} GiB above the "
+          f"{held / 2**30:.2f} GiB held, "
+          f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved; "
+          f"allocator retries per step {retries} ({smi})", flush=True)
+    gate(all(np.isfinite(losses).ravel()) and nll[-1] < nll[0]
+         and all(n == 2 * L for n in swa) and all(n == L for n in plain)
+         and all(n == Le + 2 * L for n in full),
+         f"{arch} train steps: loss and nll finite, last nll {nll[-1]:.4f} "
+         f"below the first {nll[0]:.4f}; swa launches per step {swa} "
+         f"({2 * L} expected: the forward and the remat recompute of {L} "
+         f"decoder layers); plain swa calls per step {plain} (the "
+         f"backward's recompute, one a layer); non-causal plain attention "
+         f"calls per step {full} ({Le} encoder layers once, {L} "
+         f"cross-attention layers and their remat recompute)")
+
+    g1, m1 = TS.grads_of(cfg, tcfg, state.params, batch)
+    g2, m2 = TS.grads_of(cfg, tcfg, state.params, batch)
+    same = tree_equal(torch, g1, g2) and all(
+        torch.equal(m1[k], m2[k]) for k in m1)
+    del g2, m2
+    gate(same, f"{arch}: one step's gradients from one state and batch, "
+         f"twice: bitwise equal {same}")
+    leaves = dict(tree_items(g1))
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves.values())
+    rows = [int(t.ne(0).any(-1).sum()) for t in
+            (g1["pos_table"], g1["encoder"]["pos_table"])]
+    want_rows = [min(seq, TT.POS_ROWS), n_frames]
+    gate(finite and rows == want_rows,
+         f"{arch}: {len(leaves)} gradient leaves, all finite {finite}; rows "
+         f"with a non-zero gradient: the decoder's position table "
+         f"{rows[0]} of {g1['pos_table'].shape[0]}, the encoder's "
+         f"{rows[1]} of {g1['encoder']['pos_table'].shape[0]} (expected "
+         f"{want_rows[0]} and {want_rows[1]})")
+    del g1, m1, leaves
+    torch.cuda.empty_cache()
+
+    def at_position_table(args, wrap):
+        # the encoder's backward leaves through its position table after
+        # its first layer; the frames take no gradient
+        cfg_, params, frames = args
+        enc = params["encoder"]
+        if not enc["pos_table"].requires_grad:
+            return args
+        enc = dict(enc, pos_table=wrap(enc["pos_table"]))
+        return [cfg_, dict(params, encoder=enc), frames]
+    state, metrics = training_profile(
+        torch, f"{arch} step b={bsz} s={seq} frames={n_frames}",
+        lambda: step(state, batch),
+        ((TT, "encode", "encoder", at_position_table),
+         (TA, "_full_attention", "noncausal_attention"),
+         (adamw, "update", "adamw_update")))
+    print("    the ranges nest: noncausal_attention holds the encoder's "
+          "self-attention (inside encoder) and the cross-attention's (inside "
+          "the decoder units, forward, remat recompute and backward); "
+          "swa_backward_recompute holds the causal self-attention's "
+          "backward only; adamw_update lies outside the others", flush=True)
+    del state, metrics, batch, step
+    torch.cuda.empty_cache()
+
+    # ---- the reduced config on the card against the CPU (float32) -------
+    red = TC.reduced(cfg)
+    reduced_step_check(torch, gate, red, f"reduced {arch} sync step with "
+                       f"{red.n_frames} frames", torch.Generator(), 2410,
+                       dev, tcfg, adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                    total_steps=10),
+                       frames=red.n_frames)
+    print(f"phase 24: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sum(swa)
 
 
 def _tree_to(tree, device):
@@ -6359,6 +6687,8 @@ def main() -> int:
                                timer, (bw, flops, bf16_flops))
     phase23(torch, np, smi, gate, plain_cuda_calls, dev, timer,
             (bw, flops, bf16_flops))
+    launches["swa"] += phase24(torch, np, smi, gate, plain_cuda_calls, dev,
+                               timer, (bw, flops, bf16_flops))
 
     kernels = [
         dict(name="bucket_newton_stats", route="cuda",

@@ -1519,6 +1519,52 @@ def test_swa_function_at_the_recurrentgemma_width_equals_plain_autograd(
                                        else 1e-5)
 
 
+def test_swa_function_at_the_whisper_width_equals_plain_autograd(dev):
+    """whisper-tiny's decoder self-attention in training: width 64 (the
+    wgmma kernel, K and V by TMA), 6/6 heads, bf16, 2 x 3000 tokens (no
+    multiple of a tile). One forward launch, and dq, dk, dv bit for bit
+    those of plain autograd."""
+    q, k, v = (t.requires_grad_(True) for t in
+               _qkv(dev, 2, 3000, 6, 6, 64, torch.bfloat16, seed=3000))
+    g = torch.randn(q.shape, device=dev).to(torch.bfloat16)
+    n0 = smod.swa_attention.launches
+    out = swa_op(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), g)
+    assert smod.swa_attention.launches == n0 + 1
+    want = torch.autograd.grad(smod.swa_attention_ref(q, k, v), (q, k, v), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with torch.no_grad():
+        ref = smod.swa_attention_ref(q.float(), k.float(), v.float())
+    assert _rel(out.detach(), ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)],
+                         ids=["float32", "bfloat16"])
+def test_full_attention_gradients_on_the_card_match_the_cpu(dev, dtype, tol):
+    """The encoder's and the cross-attention's non-causal attention
+    (``_full_attention``: materialised scores, the float32 softmax cast
+    back to the operands' type) at 300 queries over 200 keys, 6 heads of
+    64: output and dq, dk, dv on the card against the CPU from the same
+    inputs, in the operands' type (float32 sums in another order, TF32
+    off; in bf16 each side's products round to bf16 on their own)."""
+    from repro_torch.models import attention as TMA
+    gen = torch.Generator()
+    gen.manual_seed(300)
+    q, g = (torch.randn((2, 300, 6, 64), generator=gen).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn((2, 200, 6, 64), generator=gen).to(dtype)
+            for _ in range(2))
+    results = []
+    for where in (dev, "cpu"):
+        ins = [t.to(where).requires_grad_(True) for t in (q, k, v)]
+        out = TMA._full_attention(*ins)
+        grads = torch.autograd.grad(out, ins, g.to(where))
+        assert out.dtype == dtype and all(x.dtype == dtype for x in grads)
+        results.append([t.detach().cpu() for t in (out, *grads)])
+    assert all(_rel(a, b) <= tol for a, b in zip(*results))
+
+
 def test_kernel_attention_padded_width_gradients_match_plain(dev):
     """The reduced MLA width 48 runs the kernel zero-padded to 64 with q
     scaled by sqrt(64 / 48): output and gradients against plain autograd
@@ -1551,14 +1597,16 @@ def _family_state(arch, seed, **changes):
 
 @pytest.mark.parametrize("arch,grad_tol,flips", [
     ("qwen2-moe-a2.7b", 1e-4, 1e-4), ("minicpm3-4b", 1e-4, 1e-4),
-    ("recurrentgemma-2b", 1e-4, 1e-4), ("xlstm-1.3b", 4.5e-3, 7.8e-4)],
+    ("recurrentgemma-2b", 1e-4, 1e-4), ("xlstm-1.3b", 4.5e-3, 7.8e-4),
+    ("whisper-tiny", 1e-4, 1e-4)],
     ids=["qwen2-moe-a2.7b", "minicpm3-4b", "recurrentgemma-2b",
-         "xlstm-1.3b"])
+         "xlstm-1.3b", "whisper-tiny"])
 def test_reduced_family_train_step_on_the_card_matches_the_cpu(
         dev, arch, grad_tol, flips):
-    """One train step of the reduced expert, MLA, RG-LRU and xLSTM configs
-    (float32; recurrentgemma's 128 tokens pass its window of 64, xLSTM's
-    are one chunk) on the card and on the CPU from one state and batch,
+    """One train step of the reduced expert, MLA, RG-LRU, xLSTM and
+    whisper configs (float32; recurrentgemma's 128 tokens pass its window
+    of 64, xLSTM's are one chunk, whisper's batch carries all 16 frame
+    embeddings) on the card and on the CPU from one state and batch,
     under the gates of
     ``test_reduced_train_step_on_the_card_matches_the_cpu``: two kernel
     launches an attention layer (none in the xLSTM), nll and aux,
@@ -1581,22 +1629,30 @@ def test_reduced_family_train_step_on_the_card_matches_the_cpu(
     start = [t.clone() for t in adamw.tree_leaves(cpu.params)]
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=2)
     tcfg = TS.TrainConfig()
+    gen = torch.Generator()
+    gen.manual_seed(2)
+    frames = torch.randn((2, cfg.n_frames, cfg.d_model), generator=gen)
+
+    def batch(where):
+        out = SyntheticLM(data, where).batch(0)
+        if cfg.enc_dec:
+            out["enc_frames"] = frames.to(where)
+        return out
     n0 = smod.swa_attention.launches
-    g_card, m_card = TS.grads_of(cfg, tcfg, card.params,
-                                 SyntheticLM(data, dev).batch(0))
-    n_attn = sum(cfg.pattern[i % len(cfg.pattern)].startswith("attn")
+    g_card, m_card = TS.grads_of(cfg, tcfg, card.params, batch(dev))
+    n_attn = sum(cfg.pattern[i % len(cfg.pattern)] in ("attn", "attn_moe",
+                                                       "xattn")
                  for i in range(cfg.n_layers))
     assert smod.swa_attention.launches == n0 + 2 * n_attn
-    g_cpu, m_cpu = TS.grads_of(cfg, tcfg, cpu.params,
-                               SyntheticLM(data, "cpu").batch(0))
+    g_cpu, m_cpu = TS.grads_of(cfg, tcfg, cpu.params, batch("cpu"))
     for key in ("nll", "aux"):
         assert abs(float(m_card[key]) - float(m_cpu[key])) \
             <= 1e-5 * max(float(m_cpu[key]), 1.0)
     for a, b in zip(adamw.tree_leaves(g_card), adamw.tree_leaves(g_cpu)):
         assert _rel(a.cpu(), b) <= grad_tol
     step = TS.make_train_step(cfg, ocfg, tcfg)
-    step(card, SyntheticLM(data, dev).batch(0))
-    step(cpu, SyntheticLM(data, "cpu").batch(0))
+    step(card, batch(dev))
+    step(cpu, batch("cpu"))
     apart = total = 0
     for p0, p_card, p_cpu in zip(start, adamw.tree_leaves(card.params),
                                  adamw.tree_leaves(cpu.params)):
